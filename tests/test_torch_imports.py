@@ -1,0 +1,58 @@
+"""The port stands alone: no module of repro_torch, and not chip_smoke.py,
+imports jax or the JAX package; its entry points never fall back to the
+CPU on their own."""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_imports(path):
+    assert path.exists(), path
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_run_without_device_raises_instead_of_cpu(monkeypatch):
+    from repro_torch.experiments import get_scenario, override, run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = override(get_scenario("quickstart"), "run.rounds=1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(spec, verbose=False)
+
+
+def test_cli_without_device_raises(monkeypatch, tmp_path):
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--scenario", "quickstart", "--rounds", "1",
+                    "--out", str(tmp_path / "out.json")])
+
+
+def test_sweep_serial_writes_artifacts_and_rejects_jobs(tmp_path):
+    from repro_torch.experiments import get_scenario, override, sweep
+    spec = override(get_scenario("quickstart"), "run.rounds=1",
+                    "data.num_workers=2", "data.n_local=64")
+    with pytest.raises(NotImplementedError):
+        sweep([spec], jobs=2, device="cpu")
+    results = sweep([spec], seeds=(0, 1), out_dir=tmp_path, device="cpu")
+    assert [r.spec.run.seed for r in results] == [0, 1]
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "quickstart__s0__torch.json", "quickstart__s1__torch.json"]
