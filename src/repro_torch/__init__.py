@@ -11,6 +11,8 @@ unless the caller passes `device="cpu"`:
 
     python -m repro_torch.launch.train --scenario low-bandwidth-int4 \\
         --rounds 3 [--device cpu]
+    python -m repro_torch.launch.serve --arch recurrentgemma-9b --full \\
+        --batch 4 --prompt-len 4096 --gen-len 32 [--device cpu]
 
 Random draws are explicit inputs of each round (`core.mdsl.RoundDraws`):
 the port's own runs fill them from a `torch.Generator`; parity tests fill

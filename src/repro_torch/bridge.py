@@ -1,9 +1,11 @@
 """Carry weights and engine state across from numpy.
 
 The port shares the JAX package's layouts (nested param dicts, HWIO conv
-weights, stacked-worker leaves), so a reference state converted with
-`jax.tree.map(np.asarray, state)` maps onto the port's NamedTuples field
-by field. Nothing here imports JAX: the reference side hands over numpy.
+weights, stacked-worker leaves, stacked layer groups), so a reference
+state converted with `jax.tree.map(np.asarray, state)` maps onto the
+port's NamedTuples field by field, and a reference `Transformer.init`
+tree onto the port's transformer params leaf by leaf. Nothing here
+imports JAX: the reference side hands over numpy.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from repro_torch.comm.phy import PhyState
 from repro_torch.core.mdsl import SwarmTrainState
 from repro_torch.core.pso import GlobalBest, WorkerState
 from repro_torch.core.selection import SelectionState
+from repro_torch.models.transformer import Transformer
 from repro_torch.pytree import tree_map
 
 PyTree = Any
@@ -24,8 +27,7 @@ PyTree = Any
 def tree_from_numpy(tree: PyTree, device="cpu") -> PyTree:
     """Nested dicts/tuples of arrays -> the same of tensors on `device`
     (dtypes kept)."""
-    return tree_map(lambda a: torch.as_tensor(np.array(a)).to(device),
-                    tree)
+    return tree_map(lambda a: array_to_tensor(a).to(device), tree)
 
 
 def tree_to_numpy(tree: PyTree) -> PyTree:
@@ -58,3 +60,36 @@ def train_state_from_numpy(np_state: Any, device="cpu") -> SwarmTrainState:
         ps_residual=t(np_state.ps_residual),
         phy=PhyState(*(t(getattr(p, f)) for f in PhyState._fields)),
         buffer=None)
+
+
+def array_to_tensor(a) -> torch.Tensor:
+    """One numpy array -> a CPU tensor, dtype kept. A bfloat16 array (as
+    `np.asarray` gives for a JAX bf16 array) crosses bit for bit through
+    its uint16 view, with no import of ml_dtypes."""
+    a = np.array(a)                  # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def transformer_params_from_numpy(cfg, np_params: PyTree, device="cpu"
+                                  ) -> PyTree:
+    """A reference `Transformer(cfg).init(key)` tree with numpy leaves ->
+    the port's params on `device`. Every leaf's path, shape and dtype is
+    checked against the port's own init (on the meta device)."""
+    want = Transformer(cfg).init(None, "meta")
+
+    def walk(w, got, path):
+        if isinstance(w, dict):
+            if not isinstance(got, dict) or set(got) != set(w):
+                have = sorted(got) if isinstance(got, dict) else type(got)
+                raise ValueError(f"{path or '/'}: keys {have}, expected "
+                                 f"{sorted(w)}")
+            return {k: walk(w[k], got[k], f"{path}/{k}") for k in w}
+        t = array_to_tensor(got)
+        if tuple(t.shape) != tuple(w.shape) or t.dtype != w.dtype:
+            raise ValueError(f"{path}: {t.dtype} {tuple(t.shape)}, expected "
+                             f"{w.dtype} {tuple(w.shape)}")
+        return t.to(device)
+
+    return walk(want, np_params, "")

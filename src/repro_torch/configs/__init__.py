@@ -1,1 +1,4 @@
-"""Paper-experiment model configs (the CNN5 and the compact ResNet)."""
+"""Architecture configs (plain data, as the JAX package's `configs/`) and
+the paper-experiment model factories (`paper_cnn`)."""
+from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, InputShape,
+                                      get_arch, list_archs)

@@ -1,0 +1,14 @@
+"""DeepSeek-67B [arXiv:2401.02954]: llama-arch dense, 95L, d_model 8192,
+64 heads (GQA kv=8), d_ff 22016, vocab 102400."""
+from repro_torch.configs.base import ArchConfig, ATTN
+
+CONFIG = ArchConfig(
+    name="deepseek-67b", family="dense",
+    source="arXiv:2401.02954",
+    num_layers=95, d_model=8192, num_heads=64, num_kv_heads=8,
+    d_ff=22016, vocab_size=102400,
+    block_pattern=(ATTN,),
+    rope_theta=10_000.0,
+    swarm_mode="fsdp",
+    subquadratic=False,
+)

@@ -9,6 +9,10 @@ device dispatch, launch count) and a plain `ref.py`:
               quantize + pack + error-feedback pass, and the decode
   wire_agg    fused dequant + masked aggregate (Eq.-7 mean, median,
               trimmed mean) of C packed payloads
+  flash_attention
+              online-softmax attention (causal, sliding window, query
+              offset, valid kv length, GQA), the serve path's prefill
+  rglru_scan  the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises (`runtime`). Kernels build with nvcc on first use.

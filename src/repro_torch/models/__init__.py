@@ -1,1 +1,3 @@
-"""Paper-experiment image models."""
+"""Models: the paper-experiment image models (`cnn`) and the
+transformer family of the serve path (`layers`, `recurrent`,
+`transformer`)."""
