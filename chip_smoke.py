@@ -36,7 +36,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      rglru_scan 26 times, decode neither (a warm-up pass and the timed
      pass: 24 and 52 in all); then profiles one more prefill and one
      decode step;
-  9. prints the card line, the `kernels` JSON line and, last, the ok
+  9. the mesh slice's kernels against their plain versions on the card:
+     pso_update (Eq. 8) bitwise in f32 and bf16, clip on and off, at the
+     largest SmolLM-360M leaf stacked over W = 2 (2 x 32 x 960 x 2560)
+     and at a ragged leaf; the flash backward against
+     `attention_bwd_ref` and against autograd of `attention_ref` at the
+     SmolLM shape (B 2, S 2048, 15 heads over 5, hd 64, causal) in bf16
+     and f32 and at a windowed, ragged GQA shape; device, eager, plain
+     and library times (SDPA forward + backward for the backward) and
+     the bounds;
+ 10. a small mesh check: two M-DSL rounds of reduced smollm-360m in f32
+     (W = 2) on the card against the same rounds on the CPU, same
+     params, batches and draws;
+ 11. drives the mesh training path: `repro_torch.experiments.run` on
+     `mesh/smollm-smoke` at full width (reduced=False, seq_len 2048, W
+     2, B 2, bf16, random weights from a seed) for 3 rounds, counts
+     reset just before and read just after: per round flash_attention
+     launches 32 layers x (2 workers x 2 (forward, remat recompute) + 3
+     evaluations) = 224 times, its backward 32 x 2 = 64 times and
+     pso_update once per leaf, 11 times; then profiles one more round;
+ 12. prints the card line, the `kernels` JSON line and, last, the ok
      line.
 
 Tolerances: payloads, scales, decodes and the wire_agg median bitwise;
@@ -47,7 +66,14 @@ this is expected to be 0). flash_attention in bf16 within 2 bf16 ulps of
 the plain output (the ulp taken at no less than 2^-16 of the largest
 output), in f32 within 1e-5 of the largest output; rglru_scan bitwise;
 the small serve's logits within 5e-4 (as the CPU parity tests) and its
-greedy tokens equal.
+greedy tokens equal. pso_update bitwise. The flash backward: in f32
+within 1e-5 of the largest |gradient| against both references; in bf16
+within 2 bf16 ulps of `attention_bwd_ref` (the ulp taken at no less than
+2^-12 of the largest gradient), and within 4 bf16 ulps of the largest
+|gradient| against autograd of `attention_ref` (which forms
+rowsum(dO * O) from the f32 output, the kernel from the bf16 one). The
+small mesh rounds: losses within 5e-6, params and velocities within
+2e-7, masks equal (as the CPU parity tests).
 """
 import json
 import math
@@ -388,6 +414,28 @@ def bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x), e - 8)
 
 
+def flash_out_check(label, got, want):
+    """The forward kernel's output against the plain one: in bf16 within
+    2 bf16 ulps of the plain output, the ulp taken at no less than 2^-16
+    of the largest output (the f32 sums' own error scale); in f32 within
+    F32_RTOL of the largest output. Returns (max abs err, max |out|,
+    the rule)."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    amax = float(want.float().abs().max())
+    if got.dtype == torch.bfloat16:
+        floor = torch.full_like(diff, 2.0 ** -16 * amax)
+        tol = 2 * bf16_ulp(torch.maximum(want.float().abs(), floor))
+        ok = bool((diff <= tol).all())
+        rule = "2 bf16 ulps"
+    else:
+        ok = float(diff.max()) <= F32_RTOL * amax
+        rule = f"{F32_RTOL:g} x max|out|"
+    err = float(diff.max())
+    check(ok, f"flash_attention {label}: max abs err {err} exceeds {rule}")
+    return err, amax, rule
+
+
 def flash_case_check(dev, case, g):
     """Kernel against plain on one case; returns (max_abs_err, inputs)."""
     import torch
@@ -405,20 +453,7 @@ def flash_case_check(dev, case, g):
                               q_offset=Sk - Sq if q_offset is None
                               else q_offset, kv_len=kv_len)
     torch.cuda.synchronize()
-    diff = (got.float() - want.float()).abs()
-    amax = float(want.float().abs().max())
-    if dt == torch.bfloat16:
-        # 2 bf16 ulps of the plain output, the ulp taken at no less than
-        # 2^-16 of the largest output (the f32 sums' own error scale)
-        floor = torch.full_like(diff, 2.0 ** -16 * amax)
-        tol = 2 * bf16_ulp(torch.maximum(want.float().abs(), floor))
-        ok = bool((diff <= tol).all())
-        rule = "2 bf16 ulps"
-    else:
-        ok = float(diff.max()) <= F32_RTOL * amax
-        rule = f"{F32_RTOL:g} x max|out|"
-    err = float(diff.max())
-    check(ok, f"flash_attention {label}: max abs err {err} exceeds {rule}")
+    err, amax, rule = flash_out_check(label, got, want)
     if kv_len is not None and window:
         pos = q_offset + torch.arange(Sq, device=dev)
         empty = pos - window >= kv_len - 1
@@ -660,6 +695,410 @@ def profile_serve(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# -- the mesh slice: the fused PSO update and the flash backward ----------
+
+MESH_ARCH, MESH_W, MESH_B, MESH_S = "smollm-360m", 2, 2, 2048
+MESH_SPEC = ("model.reduced=false", f"model.seq_len={MESH_S}",
+             f"run.rounds={ROUNDS}")
+# pso_update: (label, leaf shape); the first is the largest SmolLM-360M
+# leaf (groups/b0/mlp/wi: 32 layers x 960 x 2560), stacked over W
+PSO_CASES = [("main", (32, 960, 2560)), ("ragged", (1001,))]
+# flash backward: as FLASH_CASES; the first is the SmolLM train shape
+FLASH_BWD_CASES = [
+    ("main", 2, 2048, 2048, 15, 5, 64, "bfloat16", True, 0, None, None),
+    ("f32", 2, 2048, 2048, 15, 5, 64, "float32", True, 0, None, None),
+    # windowed, ragged, suffix-aligned GQA; rows at q_pos >= 927 see no key
+    ("ragged", 2, 300, 1000, 6, 2, 128, "bfloat16", True, 128, 700, 800),
+]
+BWD_F32_RTOL = 1e-5
+LSE_ATOL = 1e-5          # the forward's log-sum-exp, f32, |lse| < ~20 here
+MESH_LOSS_TOL, MESH_PARAM_TOL = 5e-6, 2e-7
+
+
+def pso_checks(dev):
+    """pso_update against its plain version, bitwise, and its times at
+    the main leaf in bf16 (the main path's dtype)."""
+    import torch
+    from repro_torch.kernels.pso_update import ops as pops
+    from repro_torch.kernels.pso_update import ref as pref
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    W = MESH_W
+    out = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, leaf in PSO_CASES:
+            def draw(scale, shape):
+                return (scale * torch.randn(shape, generator=g, device=dev)
+                        ).to(dtype)
+            w, wl = draw(0.1, (W,) + leaf), draw(0.1, (W,) + leaf)
+            v, d = draw(0.01, (W,) + leaf), draw(1e-3, (W,) + leaf)
+            wg = draw(0.1, leaf)
+            for clip in (0.0, 0.02):
+                co = torch.cat([torch.rand((W, 1), generator=g, device=dev),
+                                torch.randn((W, 2), generator=g, device=dev),
+                                torch.full((W, 1), clip, device=dev)],
+                               1).contiguous()
+                kw_, kv_ = pops.pso_update(co, w, v, wl, wg, d)
+                pw_, pv_ = pref.pso_update_ref(co, w, v, wl, wg, d)
+                torch.cuda.synchronize()
+                e = float((kw_.float() - pw_.float()).abs().max())
+                out["max_abs_err"] = max(out["max_abs_err"], e, float(
+                    (kv_.float() - pv_.float()).abs().max()))
+                check(torch.equal(kw_, pw_) and torch.equal(kv_, pv_),
+                      f"pso_update {dtype} {label} clip={clip}: not bitwise "
+                      f"equal to the plain version (max abs err {e})")
+            print(f"[check] pso_update {str(dtype)[6:]} {label} W={W} "
+                  f"leaf={leaf}, clip off and on: bitwise equal to the "
+                  f"plain version", flush=True)
+            if label == "main" and dtype == torch.bfloat16:
+                n = wg.numel()
+                nbytes = w.element_size() * (6 * W * n + n) + 16 * W
+                bnd, by = bound_ms(nbytes, 8 * W * n)
+                t = {"ms": graph_ms(lambda: pops.pso_update(
+                         co, w, v, wl, wg, d), 10),
+                     "eager_ms": time_ms(lambda: pops.pso_update(
+                         co, w, v, wl, wg, d), 10),
+                     "plain_ms": time_ms(lambda: pref.pso_update_ref(
+                         co, w, v, wl, wg, d), 3),
+                     "library_ms": None}
+                out.update(t, bound_ms=bnd, bound_by=by)
+                print(f"[time] pso_update main (W={W}, leaf {leaf}, bf16): "
+                      f"device {t['ms']:.4f} ms/launch, eager call "
+                      f"{t['eager_ms']:.4f} ms, plain {t['plain_ms']:.3f} "
+                      f"ms, library none, bound {bnd:.4g} ms ({by}, "
+                      f"{nbytes} B)", flush=True)
+            del w, wl, v, d, wg
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_bwd_case(dev, case, g):
+    """The backward kernel against `attention_bwd_ref` and autograd of
+    `attention_ref` on one case; returns (max_abs_err vs the plain
+    backward, the inputs)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+    (label, B, Sq, Sk, H, K, hd, dtype, causal, window, q_offset,
+     kv_len) = case
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((B, Sq, H, hd), generator=g, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((B, Sk, K, hd), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window,
+              q_offset=Sk - Sq if q_offset is None else q_offset,
+              kv_len=kv_len)
+    # the training forward (the one that writes the log-sum-exp) against
+    # the plain forward at this shape: out, and lse (-inf on rows with
+    # no valid key, in the same rows)
+    out, lse = fops._forward(q, k, v, causal, window, q_offset, kv_len, True)
+    want, want_lse = fref.attention_ref(q, k, v, **kw, return_lse=True)
+    torch.cuda.synchronize()
+    err, amax, rule = flash_out_check(f"{label} (training forward)", out,
+                                      want)
+    fin = torch.isfinite(want_lse)
+    check(torch.equal(torch.isfinite(lse), fin)
+          and bool((lse[~fin] == want_lse[~fin]).all()),
+          f"flash forward {label}: lse not -inf exactly where the plain "
+          f"one is")
+    lerr = float((lse[fin] - want_lse[fin]).abs().max())
+    check(lerr <= LSE_ATOL, f"flash forward {label}: lse max abs err {lerr} "
+                            f"exceeds {LSE_ATOL:g}")
+    print(f"[check] flash forward (with lse) {label} {dtype} B={B} Sq={Sq} "
+          f"Sk={Sk} H={H} K={K} hd={hd} window={window}: out max abs err "
+          f"{err:.3g} (max |out| {amax:.3g}; within {rule}), lse max abs "
+          f"err {lerr:.3g} (within {LSE_ATOL:g}; {int((~fin).sum())} rows "
+          f"-inf in both)", flush=True)
+    del want, want_lse
+    got = fops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    plain = fref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    auto = torch.autograd.grad(fref.attention_ref(*xs, **kw), xs, do)
+    torch.cuda.synchronize()
+    errs = []
+    for name, refs in (("plain", plain), ("autograd", auto)):
+        for n, a, b in zip("qkv", got, refs):
+            a, b = a.float(), b.float()
+            check(bool(torch.isfinite(a).all()), f"flash backward {label} "
+                                                 f"d{n} not finite")
+            diff, amax = (a - b).abs(), float(b.abs().max())
+            if dt == torch.float32:
+                ok, rule = (float(diff.max()) <= BWD_F32_RTOL * amax,
+                            f"{BWD_F32_RTOL:g} x max|grad|")
+            elif name == "plain":
+                floor = torch.full_like(b, 2.0 ** -12 * amax)
+                ok = bool((diff <= 2 * bf16_ulp(torch.maximum(b.abs(),
+                                                              floor))).all())
+                rule = "2 bf16 ulps"
+            else:
+                ok = float(diff.max()) <= 4 * float(bf16_ulp(
+                    torch.tensor(amax)))
+                rule = "4 bf16 ulps of max|grad|"
+            check(ok, f"flash backward {label} d{n} vs {name}: max abs err "
+                      f"{float(diff.max())} exceeds {rule}")
+            if name == "plain":
+                errs.append(float(diff.max()))
+            print(f"[check] flash backward {label} {dtype} d{n} vs {name}: "
+                  f"max abs err {float(diff.max()):.3g} (max |grad| "
+                  f"{amax:.3g}; within {rule})", flush=True)
+    if kv_len is not None and window:
+        pos = kw["q_offset"] + torch.arange(Sq, device=dev)
+        empty = pos - window >= kv_len - 1
+        check(bool(empty.any()) and bool((got[0][:, empty] == 0).all()),
+              f"flash backward {label}: fully masked rows get a gradient")
+    del plain, auto, xs
+    return max(errs), (q, k, v, out, do, lse, kw)
+
+
+def flash_bwd_checks(dev):
+    """The backward kernel on every case; times and bounds at the main
+    (SmolLM train) shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    results = [flash_bwd_case(dev, c, g) for c in FLASH_BWD_CASES]
+    for hd in (64, 128, 256):
+        try:
+            fops.require_bwd_head_dim(hd)
+            ok = hd != 256
+        except ValueError:
+            ok = hd == 256
+        check(ok, f"flash backward library: head_dim {hd} "
+                  f"{'accepted' if hd == 256 else 'refused'}")
+    print("[check] flash backward library: head dims 64 and 128 accepted, "
+          "256 refused", flush=True)
+    err = max(e for e, _ in results)
+    q, k, v, out, do, lse, kw = results[0][1]
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    pairs = B * H * S * (S + 1) // 2          # unmasked (query, key) pairs
+    nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + do.numel()) + 4 * lse.numel()
+    bnd, by = bound_ms(nbytes, 10 * hd * pairs, BF16_OPS_PER_S)
+
+    def bwd():
+        return fops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+
+    def fwd_bwd():
+        o, lz = fops._forward(q, k, v, True, 0, None, None, True)
+        return fops.flash_attention_bwd(q, k, v, o, do, lz, **kw)
+
+    # the library yardstick: SDPA forward + backward, causal, with the
+    # kv heads repeated (timed here, used nowhere in the port)
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.transpose(1, 2).repeat_interleave(H // K, 1).contiguous() \
+        .requires_grad_()
+    vt = v.transpose(1, 2).repeat_interleave(H // K, 1).contiguous() \
+        .requires_grad_()
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    t = {"ms": graph_ms(bwd, 5), "eager_ms": time_ms(bwd, 10),
+         "plain_ms": time_ms(lambda: fref.attention_bwd_ref(
+             q, k, v, out, do, lse, **kw), 3),
+         "library_ms": time_ms(sdpa, 10)}
+    fb = time_ms(fwd_bwd, 10)
+    print(f"[time] flash backward main (B={B} S={S} H={H} K={K} hd={hd} "
+          f"causal bf16): device {t['ms']:.4f} ms/launch, eager call "
+          f"{t['eager_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms; kernel "
+          f"forward (with lse) + backward {fb:.4f} ms against library "
+          f"(SDPA forward + backward, causal) {t['library_ms']:.4f} ms; "
+          f"bound {bnd:.4g} ms ({by}; {pairs} pairs at 10 hd operations, "
+          f"{nbytes} B)", flush=True)
+    del results, q, k, v, out, do, lse, qt, kt, vt
+    torch.cuda.empty_cache()
+    return dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by,
+                fwd_bwd_ms=fb)
+
+
+def small_mesh_check(dev):
+    """Two M-DSL rounds of reduced smollm-360m in f32 (W = 2) on the card
+    (kernels) against the same rounds on the CPU (plain versions), from
+    the same params (through the bridge), batches and draws."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_arch
+    from repro_torch.core import swarm_dist
+    from repro_torch.kernels import runtime
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_arch(MESH_ARCH).reduced(), dtype="float32")
+    model = Transformer(cfg)
+    gen = torch.Generator().manual_seed(5)
+    cpu_params = model.init(gen, "cpu")
+    gpu_params = bridge.transformer_params_from_numpy(
+        cfg, bridge.tree_to_numpy(cpu_params), dev)
+    dcfg = swarm_dist.DistSwarmConfig(num_spatial=MESH_W)
+    step = swarm_dist.build_train_step(model.loss, dcfg)
+    cs = swarm_dist.init_state(cpu_params, dcfg)
+    gs = swarm_dist.init_state(gpu_params, dcfg)
+
+    def to_dev(x):
+        return None if x is None else tree_map(lambda t: t.to(dev), x)
+
+    runtime.reset_counts()
+    for r in range(2):
+        toks = torch.randint(0, cfg.vocab_size, (MESH_W + 1, 2, 128),
+                             generator=gen)
+        batch = {"tokens": toks[:MESH_W],
+                 "labels": torch.roll(toks[:MESH_W], -1, dims=-1)}
+        ev = {"tokens": toks[MESH_W], "labels": torch.roll(toks[MESH_W], -1,
+                                                           dims=-1)}
+        draws = swarm_dist.sample_draws(gen, dcfg, cpu_params, "cpu")
+        cs, ci = step(cs, batch, ev, draws)
+        gs, gi = step(gs, to_dev(batch), to_dev(ev),
+                      type(draws)(*[to_dev(x) for x in draws]))
+        torch.cuda.synchronize()
+        check(torch.equal(ci.mask, gi.mask.cpu()), f"small mesh round "
+                                                   f"{r + 1}: masks")
+        lerr = max(float((gi.losses.cpu() - ci.losses).abs().max()),
+                   abs(float(gi.global_loss) - float(ci.global_loss)))
+        perr = max(float((a.cpu() - b).abs().max())
+                   for f in ("params", "velocity", "global_params")
+                   for a, b in zip(tree_leaves(getattr(gs, f)),
+                                   tree_leaves(getattr(cs, f))))
+        check(lerr <= MESH_LOSS_TOL and perr <= MESH_PARAM_TOL,
+              f"small mesh round {r + 1}: card vs CPU losses off by {lerr}, "
+              f"params/velocity off by {perr}")
+        print(f"[small] mesh round {r + 1} {cfg.name} f32 W={MESH_W} card "
+              f"vs CPU: masks equal, losses max abs err {lerr:.3g} (tol "
+              f"{MESH_LOSS_TOL:g}), params and velocity {perr:.3g} (tol "
+              f"{MESH_PARAM_TOL:g})", flush=True)
+    counts = runtime.counts()
+    want = {k: 2 * n for k, n in mesh_launches_per_round(
+        cfg, len(tree_leaves(cpu_params))).items()}
+    check(counts == want, f"small mesh rounds launched {counts}, expected "
+                          f"{want}")
+
+
+def mesh_launches_per_round(cfg, n_leaves: int) -> dict:
+    """Kernel launches of one M-DSL round: per layer, each worker's
+    forward and remat recompute plus W + 1 evaluations through the
+    forward kernel, each worker's backward, and Eq. 8 once per leaf."""
+    L, W = cfg.num_layers, MESH_W
+    return {"flash_attention": L * (2 * W + W + 1),
+            "flash_attention_bwd": L * W, "pso_update": n_leaves}
+
+
+def mesh_main_path():
+    """The mesh training path at full width through the user's entry
+    point, counts reset just before and read just after."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.experiments import get_scenario, override, run
+    from repro_torch.kernels import runtime
+    from repro_torch.pytree import tree_leaves
+
+    spec = override(get_scenario("mesh/smollm-smoke"), *MESH_SPEC)
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    result = run(spec)
+    torch.cuda.synchronize()
+    counts = runtime.counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rec = result.record
+    gp = result.state.global_params
+    n_params = sum(x.numel() for x in tree_leaves(gp))
+    tokens = MESH_W * MESH_B * MESH_S
+    for t in range(ROUNDS):
+        print(f"[mesh] round {t + 1}{' (warm-up)' if t == 0 else ''}: "
+              f"{rec['step_time_s'][t]:.4f} s, global loss "
+              f"{rec['global_loss'][t]:.5f}, worker losses "
+              f"{rec['worker_losses'][t]}, selected {rec['selected'][t]}/"
+              f"{MESH_W}, launches {rec['launches'][t]}", flush=True)
+    steady = rec["step_time_s"][1:]
+    print(f"[mesh] {MESH_ARCH} full width ({n_params} params, bf16) W="
+          f"{MESH_W} B={MESH_B} S={MESH_S} ({tokens} tokens a round): "
+          f"{statistics.mean(steady):.4f} s per round after the warm-up "
+          f"({tokens / statistics.mean(steady):.1f} tok/s), peak memory "
+          f"{peak / 2**30:.2f} GiB; {wall:.1f} s with init; all launches "
+          f"{counts}", flush=True)
+    check(rec["device"] == torch.cuda.get_device_name(0),
+          f"mesh run on {rec['device']}")
+    check(all(math.isfinite(v) for v in rec["global_loss"]),
+          "mesh global loss not finite")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(gp)),
+          "mesh global params not finite")
+    per_round = mesh_launches_per_round(get_arch(MESH_ARCH),
+                                        len(tree_leaves(gp)))
+    for t in range(ROUNDS):
+        check(rec["launches"][t] == per_round,
+              f"mesh round {t + 1} launched {rec['launches'][t]}, expected "
+              f"{per_round}")
+    want = {k: ROUNDS * n for k, n in per_round.items()}
+    check(counts == want, f"mesh run launched {counts}, expected {want}")
+    return counts, spec
+
+
+def profile_mesh(spec) -> None:
+    """One more full-width round under torch.profiler, after the counted
+    run: the device's busy share, device time split into GEMMs, the flash
+    forward and backward, pso_update and the rest, the top device ops and
+    the stage ranges."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.experiments import build
+
+    prep = build(spec)
+    state, _ = prep.step(prep.state, prep.draw(prep.state))     # warm
+    draws = prep.draw(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prep.step(state, draws)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    names = ("LocalUpdate", "ScoreSelect", "Uplink", "Aggregate",
+             "Downlink", "BestTracking")
+    rows = sorted((e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
+                   and e.key not in names), key=dev_us, reverse=True)
+
+    def ms_of(*words):
+        return sum(dev_us(e) for e in rows
+                   if any(w in e.key.lower() for w in words)) / 1e3
+
+    busy = sum(dev_us(e) for e in rows) / 1e3
+    gemm = ms_of("gemm", "gemv", "xmma", "cutlass", "sm90_", "nvjet")
+    fwd = ms_of("flash_attention_kernel")
+    bwd = ms_of("dkdv_kernel", "dq_kernel", "dot_kernel")
+    pso = ms_of("pso_update_kernel")
+    print(f"[profile] one full-width mesh round: wall {wall_ms:.1f} ms "
+          f"(profiler on), device busy {busy:.1f} ms "
+          f"({100 * busy / wall_ms:.1f}%): GEMMs {gemm:.1f} ms, flash "
+          f"forward {fwd:.1f} ms, flash backward {bwd:.1f} ms, pso_update "
+          f"{pso:.2f} ms, other {busy - gemm - fwd - bwd - pso:.1f} ms; "
+          f"{sum(e.count for e in rows)} device ops", flush=True)
+    stages = {e.key: e for e in prof.key_averages()
+              if e.key in names and str(e.device_type).endswith("CPU")}
+    print("[profile] stages (host ms / device ms of its kernels): " + ", ".join(
+        f"{k} {stages[k].cpu_time_total / 1e3:.2f}/"
+        f"{getattr(stages[k], 'device_time_total', 0.0) / 1e3:.2f}"
+        for k in names if k in stages), flush=True)
+    for e in rows[:14]:
+        print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}", flush=True)
+    del prep, state, draws
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -727,6 +1166,12 @@ def main() -> None:
     serve_counts = serve_main_path()
     profile_serve(dev)
 
+    mesh_stats = {"pso_update": pso_checks(dev),
+                  "flash_attention_bwd": flash_bwd_checks(dev)}
+    small_mesh_check(dev)
+    mesh_counts, mesh_spec = mesh_main_path()
+    profile_mesh(mesh_spec)
+
     src = {"quant_pack_ef": ("quant_pack",
                              "src/repro/kernels/quant_pack/quant_pack.py:172"),
            "wire_agg": ("wire_agg",
@@ -756,6 +1201,23 @@ def main() -> None:
                  "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                  "eager_ms": s["eager_ms"], "check": "pass"}
                 for name, s in serve_stats.items()]
+    # flash_attention also runs on the mesh path: its launches there
+    next(k for k in kernels if k["name"] == "flash_attention")[
+        "launches_mesh"] = mesh_counts["flash_attention"]
+    replaces = {
+        "pso_update": "src/repro/kernels/pso_update/pso_update.py:42",
+        # no TPU kernel: XLA's autodiff of chunked_attention
+        "flash_attention_bwd": "src/repro/models/layers.py:129 (XLA autodiff "
+                               "of chunked_attention; no TPU kernel)"}
+    kernels += [{"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/csrc/{name}.cu",
+                 "replaces": replaces[name],
+                 "launches": mesh_counts[name],
+                 "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                 "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+                 "eager_ms": s["eager_ms"], "check": "pass"}
+                for name, s in mesh_stats.items()]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -118,8 +118,12 @@ def velocity_update(w, v, wl, wg, d, coeffs: PsoCoefficients,
 
 
 def sgd_step(params: PyTree, grads: PyTree, lr) -> PyTree:
-    """Plain SGD step, dtype-preserving."""
-    return tree_map(lambda w, g: (w - lr * g).to(w.dtype), params, grads)
+    """Plain SGD step, dtype-preserving: formed in f32 and rounded once to
+    each leaf's dtype, as the reference's f32 learning rate promotes a
+    bf16 leaf (a no-op cast for f32 leaves)."""
+    f32 = torch.float32
+    return tree_map(lambda w, g: (w.to(f32) - lr * g.to(f32)).to(w.dtype),
+                    params, grads)
 
 
 def decayed_lr(hp: PsoHyperParams, round_idx: int) -> float:

@@ -9,7 +9,9 @@ stacked-worker pytrees (leading dim C).
                  `receive_packed`)
   Downlink       the PS broadcast, optionally quantized with PS-side
                  error feedback (`downlink`)
-  BestTracking   Eq. 9/10 (core/pso.py)
+  BestTracking   Eq. 9/10 (core/pso.py for the paper engine;
+                 `track_local_best` / `track_global_best` here for the
+                 mesh engine's stacked state)
 
 `wire_round` is the one Uplink -> Aggregate -> Downlink block, with the
 JAX package's three routes: the fused packed route (int8/int4, one
@@ -248,6 +250,59 @@ def wire_round(comm: CommConfig, *, delta: PyTree, theta: torch.Tensor,
     return WireOutcome(global_params=bcast, residual=residual,
                        ps_residual=ps_residual, mask_eff=mask_eff,
                        record=rec, phy=phy, buffer=buffer)
+
+
+# ---------------------------------------------------------------------------
+# BestTracking stage (Eqs. 9/10, stacked form used by the mesh engine;
+# the paper engine keeps its WorkerState-shaped pso.update_*_best)
+# ---------------------------------------------------------------------------
+
+def track_local_best(best_params: PyTree, best_loss: torch.Tensor,
+                     params: PyTree, losses: torch.Tensor
+                     ) -> tuple[PyTree, torch.Tensor]:
+    """Eq. 9 over stacked workers: keep each worker's best-F params."""
+    improved = losses < best_loss
+
+    def leaf(n, o):
+        return torch.where(improved.reshape((-1,) + (1,) * (n.ndim - 1)),
+                           n, o)
+
+    return (tree_map(leaf, params, best_params),
+            torch.where(improved, losses, best_loss))
+
+
+def track_global_best(gbest_params: PyTree, gbest_loss: torch.Tensor,
+                      params: PyTree, loss: torch.Tensor
+                      ) -> tuple[PyTree, torch.Tensor]:
+    """Eq. 10: keep the best global model seen so far."""
+    improved = loss < gbest_loss
+    return (tree_map(lambda n, o: torch.where(improved, n, o), params,
+                     gbest_params),
+            torch.minimum(loss, gbest_loss))
+
+
+# ---------------------------------------------------------------------------
+# shared LocalUpdate helper
+# ---------------------------------------------------------------------------
+
+def accumulated_grad(grad_fn: Callable, params: PyTree, batch: PyTree,
+                     microbatches: int) -> PyTree:
+    """Gradient of one local batch, optionally accumulated over
+    microbatch chunks of the leading batch dim (f32 accumulator, then
+    the mean cast back to each param's dtype) to bound activation
+    memory. `grad_fn(params, batch) -> grads`."""
+    if microbatches <= 1:
+        return grad_fn(params, batch)
+    k = microbatches
+    f32 = torch.float32
+    total = tree_map(lambda x: torch.zeros(x.shape, dtype=f32,
+                                           device=x.device), params)
+    for i in range(k):
+        mb = tree_map(lambda x: x.reshape((k, x.shape[0] // k)
+                                          + tuple(x.shape[1:]))[i], batch)
+        total = tree_map(lambda s, g: s + g.to(f32), total,
+                         grad_fn(params, mb))
+    return tree_map(lambda g, p: (g / k).to(p.dtype), total, params)
 
 
 # ---------------------------------------------------------------------------

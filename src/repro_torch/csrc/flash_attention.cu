@@ -35,6 +35,10 @@
 //   At S 4096 and window 2048 that is about half of all tiles. Ragged
 //   edges (Sq, Sk not multiples of a tile) are bounds checks, not
 //   padding. kv head h / (H / K) is indexed, never repeated.
+// - With a non-null `lse` (the training forward) each row's log-sum-exp
+//   m + log(l) of the scaled scores is written to a (B, H, Sq) f32
+//   buffer (-inf for a row with no valid key): the backward kernels
+//   (flash_attention_bwd.cu) recompute P from it.
 // Build without --use_fast_math (expf, IEEE division).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,9 +80,10 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int H, int K, int causal, int window,
-                       int q_offset, int kv_len, float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int Sq, int Sk, int H, int K,
+                       int causal, int window, int q_offset, int kv_len,
+                       float scale) {
   constexpr int kChunks = HD / 4;    // 4-float chunks per row
   constexpr int kJ = HD / 16;        // chunks per thread
   extern __shared__ float4 smem[];
@@ -208,13 +213,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                    acc[j].z / den, acc[j].w / den);
       store4(out + q_row * HD + (part + 4 * j) * 4, o);
     }
+    // the row's log-sum-exp of the scaled scores, for the backward
+    // (-inf for a row with no valid key)
+    if (lse != nullptr && part == 0) {
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] =
+          l_run > 0.f ? m_run + logf(l_run) : __int_as_float(0xff800000);
+    }
   }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int K, int causal, int window, int q_offset,
-           int kv_len, float scale, cudaStream_t s) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int B, int Sq, int Sk, int H, int K, int causal, int window,
+           int q_offset, int kv_len, float scale, cudaStream_t s) {
   constexpr int smem = 2 * kBlockK * HD * static_cast<int>(sizeof(float));
   // opt in to more than 48 KiB of dynamic shared memory once, before the
   // first launch (outside any CUDA-graph capture that follows it)
@@ -229,28 +240,30 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
   flash_attention_kernel<T, HD><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, K, causal,
-      window, q_offset, kv_len, scale);
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), Sq, Sk, H, K, causal, window, q_offset,
+      kv_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
-             int B, int Sq, int Sk, int H, int K, int causal, int window,
-             int q_offset, int kv_len, float scale, cudaStream_t s) {
+             void* lse, int B, int Sq, int Sk, int H, int K, int causal,
+             int window, int q_offset, int kv_len, float scale,
+             cudaStream_t s) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, out, B, Sq, Sk, H, K, causal, window,
-                           q_offset, kv_len, scale, s);
+      return launch<T, 32>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+                           window, q_offset, kv_len, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, out, B, Sq, Sk, H, K, causal, window,
-                           q_offset, kv_len, scale, s);
+      return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+                           window, q_offset, kv_len, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, Sq, Sk, H, K, causal, window,
-                            q_offset, kv_len, scale, s);
+      return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+                            window, q_offset, kv_len, scale, s);
     case 256:
-      return launch<T, 256>(q, k, v, out, B, Sq, Sk, H, K, causal, window,
-                            q_offset, kv_len, scale, s);
+      return launch<T, 256>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+                            window, q_offset, kv_len, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -263,17 +276,20 @@ extern "C" int fa_supports_head_dim(int hd) {
   return hd == 32 || hd == 64 || hd == 128 || hd == 256;
 }
 
-// dtype: 0 f32, 1 bf16. Returns cudaGetLastError() after the launch (or
-// the error of the shared-memory opt-in).
+// dtype: 0 f32, 1 bf16. lse: null, or a (B, H, Sq) f32 buffer that gets
+// each row's log-sum-exp (the training forward; serve passes null).
+// Returns cudaGetLastError() after the launch (or the error of the
+// shared-memory opt-in).
 extern "C" int fa_flash_attention(const void* q, const void* k, const void* v,
-                                  void* out, int B, int Sq, int Sk, int H,
-                                  int K, int hd, int dtype, int causal,
+                                  void* out, void* lse, int B, int Sq, int Sk,
+                                  int H, int K, int hd, int dtype, int causal,
                                   int window, int q_offset, int kv_len,
                                   float scale, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(hd, q, k, v, out, B, Sq, Sk, H, K, causal,
-                                   window, q_offset, kv_len, scale, s);
-  return dispatch<float>(hd, q, k, v, out, B, Sq, Sk, H, K, causal, window,
-                         q_offset, kv_len, scale, s);
+    return dispatch<__nv_bfloat16>(hd, q, k, v, out, lse, B, Sq, Sk, H, K,
+                                   causal, window, q_offset, kv_len, scale,
+                                   s);
+  return dispatch<float>(hd, q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+                         window, q_offset, kv_len, scale, s);
 }

@@ -1,5 +1,5 @@
 """repro_torch.experiments — the JAX package's spec, scenario registry
-and `run()` front door, for the port (paper driver).
+and `run()` front door, for the port (paper and mesh drivers).
 
     from repro_torch.experiments import get_scenario, override, run
     result = run(override(get_scenario("low-bandwidth-int4"),

@@ -1,4 +1,4 @@
-"""`run(spec) -> RunResult`: the paper driver of the port.
+"""`run(spec) -> RunResult`: the paper and mesh drivers of the port.
 
     build(spec, device)  -> Prepared   data/model/state + step and draw fns
     run(spec, device)    -> RunResult  the metrics record (the JAX
@@ -13,14 +13,18 @@ cuDNN convolution paths (`torch.backends.cuda.matmul.allow_tf32` and
 `torch.backends.cudnn.allow_tf32`), so the card computes in full f32 like
 the reference, and restores both flags afterwards.
 
-Randomness: data comes from `run.seed`; the initial params and every
-round's `RoundDraws` from one torch.Generator seeded with `run.seed + 1`.
-`build(..., data=, init_params=)` injects the reference's arrays, and a
-caller may replace `Prepared.draw` to inject the reference's draws.
+Randomness: paper runs take their data from `run.seed`, and the initial
+params and every round's `RoundDraws` from one torch.Generator seeded
+with `run.seed + 1`. Mesh runs (`model.kind="mesh"`: M-DSL over W
+transformer workers, `core/swarm_dist`) take the initial params, every
+round's token batches and its draws from one torch.Generator seeded
+with `run.seed`. `build(..., data=, init_params=)` injects the
+reference's arrays, and a caller may replace `Prepared.draw` to inject
+the reference's draws (and, for mesh runs, batches).
 
-Not ported yet (they raise NotImplementedError): the mesh driver, the
-population wrapper, the obs event stream, the straggler engine, and
-`sweep(jobs > 1)`.
+Not ported yet (they raise NotImplementedError): the population
+wrapper, the obs event stream, mesh checkpoints (`run.ckpt_dir`), the
+straggler engine, and `sweep(jobs > 1)`.
 """
 from __future__ import annotations
 
@@ -33,18 +37,22 @@ from typing import Any, Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.bridge import tree_from_numpy
+from repro_torch.bridge import (transformer_params_from_numpy,
+                                tree_from_numpy)
 from repro_torch.comm.budget import (dense_bytes, downlink_config,
                                      host_round_bytes, payload_bytes)
+from repro_torch.configs.base import get_arch
 from repro_torch.configs.paper_cnn import paper_cnn, paper_resnet
 from repro_torch.core import losses as losses_mod
-from repro_torch.core import mdsl, noniid
+from repro_torch.core import mdsl, noniid, swarm_dist
 from repro_torch.core.mdsl import MdslConfig
 from repro_torch.data import partition
 from repro_torch.data.partition import FederatedData
 from repro_torch.data.synthetic import CIFAR_LIKE, MNIST_LIKE
 from repro_torch.experiments.spec import ExperimentSpec, override, to_dict
+from repro_torch.kernels import runtime
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.models.transformer import Transformer
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts"
 SCHEMA_VERSION = 2
@@ -174,21 +182,136 @@ def _prepare_paper(spec: ExperimentSpec, device: torch.device,
                          "cfg": cfg, "test_accuracy": test_accuracy})
 
 
+# ---------------------------------------------------------------------------
+# Mesh driver: M-DSL over W transformer workers (core/swarm_dist)
+# ---------------------------------------------------------------------------
+
+def _prepare_mesh(spec: ExperimentSpec, device: torch.device,
+                  init_params: Optional[dict]) -> Prepared:
+    m, a, r = spec.model, spec.algo, spec.run
+    W = spec.data.num_workers
+    cfg = get_arch(m.name)
+    if m.reduced:
+        cfg = cfg.reduced()
+    model = Transformer(cfg)
+    dcfg = swarm_dist.DistSwarmConfig(num_spatial=W,
+                                      local_steps=a.local_steps, tau=a.tau,
+                                      hp=a.hp, comm=spec.comm)
+    gen = torch.Generator(device=device).manual_seed(r.seed)
+    params = (model.init(gen, device) if init_params is None
+              else transformer_params_from_numpy(cfg, init_params, device))
+    state = swarm_dist.init_state(params, dcfg)
+    make = (swarm_dist.fedavg_train_step if a.algorithm == "fedavg"
+            else swarm_dist.build_train_step)
+    step_fn = make(model.loss, dcfg)
+    B, S = m.per_worker_batch, m.seq_len
+
+    def batch_for(lead: tuple) -> dict:
+        toks = torch.randint(0, cfg.vocab_size, lead + (B, S), generator=gen,
+                             device=device)
+        return {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+
+    def draw(state):
+        """(worker batches (W, B, S), eval batch (B, S), RoundDraws)."""
+        return (batch_for((W,)), batch_for(()),
+                swarm_dist.sample_draws(gen, dcfg, state.global_params,
+                                        device))
+
+    def step(state, draws):
+        return step_fn(state, *draws)
+
+    return Prepared(spec=spec, state=state, step=step, draw=draw,
+                    n_params=mdsl.count_params(params),
+                    device=device,
+                    aux={"model": model, "arch_cfg": cfg, "dcfg": dcfg,
+                         "params": params})
+
+
+def _run_mesh(prep: Prepared, verbose: bool) -> RunResult:
+    """The round loop of a mesh run: the reference's record keys, plus
+    the device's name and each round's kernel launches."""
+    spec = prep.spec
+    m, r = spec.model, spec.run
+    comm = prep.aux["dcfg"].comm
+    params = prep.aux["params"]
+    dev = prep.device
+    record = {"arch": m.name, "reduced": m.reduced, "steps": r.rounds,
+              "comm": comm._asdict(),
+              "payload_bytes_per_worker": payload_bytes(comm, params),
+              "downlink_bytes_per_worker": payload_bytes(
+                  downlink_config(comm), params),
+              "global_loss": [], "worker_losses": [], "selected": [],
+              "delivered": [], "bytes_up": [], "bytes_down": [],
+              "airtime_s": [], "energy_j": [], "mean_snr_db": [],
+              "step_time_s": [],
+              "device": (torch.cuda.get_device_name(dev)
+                         if dev.type == "cuda" else str(dev)),
+              "launches": []}
+    state = prep.state
+    with _full_f32():
+        for i in range(r.rounds):
+            state = _mesh_round(prep, state, i, record, verbose)
+    record["total_airtime_s"] = float(sum(record["airtime_s"]))
+    record["total_energy_j"] = float(sum(record["energy_j"]))
+    return RunResult(spec=spec, record=record, state=state)
+
+
+def _mesh_round(prep: Prepared, state, i: int, record: dict,
+                verbose: bool):
+    """One round of `_run_mesh`: appends its row to `record` and returns
+    the next state."""
+    m, r = prep.spec.model, prep.spec.run
+    W = prep.spec.data.num_workers
+    before = runtime.counts()
+    t0 = time.perf_counter()
+    state, info = prep.step(state, prep.draw(state))
+    gl = float(info.global_loss)                     # syncs the device
+    up, down = host_round_bytes(
+        prep.aux["dcfg"].comm, selected=info.mask.sum(),
+        bytes_up_jit=info.bytes_up,
+        payload_up=record["payload_bytes_per_worker"],
+        payload_down=record["downlink_bytes_per_worker"], num_workers=W)
+    row = {"global_loss": gl,
+           "worker_losses": info.losses.cpu().tolist(),
+           "selected": float(info.mask.sum()),
+           "delivered": float(info.delivered),
+           "bytes_up": up, "bytes_down": down,
+           "airtime_s": float(info.airtime_s),
+           "energy_j": float(info.energy_j),
+           "mean_snr_db": float(info.mean_snr_db),
+           "step_time_s": time.perf_counter() - t0}
+    after = runtime.counts()
+    row["launches"] = {k: n - before.get(k, 0) for k, n in after.items()
+                       if n != before.get(k, 0)}
+    for k, v in row.items():
+        record[k].append(v)
+    if verbose:
+        print(f"[mesh/{m.name}] step {i + 1}/{r.rounds} "
+              f"global_loss={gl:.4f} selected={int(info.mask.sum())}/{W} "
+              f"air={row['airtime_s']:.3f}s e={row['energy_j']:.3f}J "
+              f"t={row['step_time_s']:.3f}s", flush=True)
+    return state
+
+
 def build(spec: ExperimentSpec, device=None,
           data: Optional[FederatedData] = None,
           init_params: Optional[dict] = None) -> Prepared:
     """Validate a spec and materialize data, model and state on `device`
     (None = the CUDA card; raises without one). `data` and `init_params`
-    inject the reference's arrays (numpy or tensors)."""
+    inject the reference's arrays (numpy or tensors; a mesh run takes
+    only `init_params`, the reference's transformer params)."""
     spec = spec.validate()
-    if spec.model.kind != "paper":
-        raise NotImplementedError("the mesh driver is not ported to "
-                                  "repro_torch yet")
-    if spec.fleet.population:
-        raise NotImplementedError("the population engine is not ported to "
-                                  "repro_torch yet")
     if spec.run.obs.enabled:
         raise NotImplementedError("the obs event stream is not ported to "
+                                  "repro_torch yet")
+    if spec.model.kind == "mesh":
+        if spec.run.ckpt_dir:
+            raise NotImplementedError("mesh checkpoints (run.ckpt_dir) "
+                                      "need checkpoint/npz, which is not "
+                                      "ported to repro_torch yet")
+        return _prepare_mesh(spec, resolve_device(device), init_params)
+    if spec.fleet.population:
+        raise NotImplementedError("the population engine is not ported to "
                                   "repro_torch yet")
     return _prepare_paper(spec, resolve_device(device), data, init_params)
 
@@ -209,6 +332,8 @@ def _full_f32():
 
 def run_prepared(prep: Prepared, verbose: bool = True) -> RunResult:
     """The round loop over a built run (see `run`)."""
+    if prep.spec.model.kind == "mesh":
+        return _run_mesh(prep, verbose)
     spec, comm = prep.spec, prep.spec.comm
     d, a, r = spec.data, spec.algo, spec.run
     state = prep.state

@@ -5,7 +5,8 @@
 `a`: a CPU tensor takes the plain version (ref.py), a CUDA tensor
 launches csrc/rglru_scan.cu (or raises). The kernel takes any sequence
 length, so there is no identity-step padding. Forward only: there is no
-backward kernel yet, and asking for a gradient raises.
+backward kernel yet (a RecurrentGemma training slice needs one), and
+asking for a gradient raises.
 """
 from __future__ import annotations
 
@@ -56,7 +57,7 @@ def rglru_scan(h0: torch.Tensor, a: torch.Tensor, b: torch.Tensor
     if torch.is_grad_enabled() and any(t.requires_grad for t in (h0, a, b)):
         raise NotImplementedError(
             "rglru_scan is forward-only: its backward kernel comes with "
-            "the training slice")
+            "a RecurrentGemma training slice")
     f32 = torch.float32
     states = rglru_scan_raw(h0.to(f32).contiguous(), a.to(f32).contiguous(),
                             b.to(f32).contiguous())

@@ -2,6 +2,11 @@
 
   python -m repro_torch.launch.train --scenario low-bandwidth-int4 \\
       --rounds 3 [--out PATH] [--device cpu]
+  python -m repro_torch.launch.train --scenario mesh/smollm-smoke \\
+      --set model.reduced=false --set model.seq_len=2048 --rounds 3
+
+`--set KEY=VALUE` (repeatable) overrides any dotted spec path, after
+`--rounds` and `--out`, as the reference's CLI does.
 
 Runs on the CUDA card unless `--device` names another; with no card and
 no `--device` it fails instead of falling back to the CPU.
@@ -22,6 +27,9 @@ def main(argv=None) -> None:
     ap.add_argument("--out", default=None, help="metrics JSON path")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
+                    help="override a dotted spec path (repeatable), e.g. "
+                         "--set model.reduced=false")
     args = ap.parse_args(argv)
     try:
         spec = get_scenario(args.scenario)
@@ -29,6 +37,8 @@ def main(argv=None) -> None:
             spec = override(spec, f"run.rounds={args.rounds}")
         if args.out is not None:
             spec = override(spec, f"run.out={args.out}")
+        if args.set:
+            spec = override(spec, *args.set)
         spec = spec.validate()
     except ValueError as e:
         ap.error(str(e))

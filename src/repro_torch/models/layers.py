@@ -9,7 +9,10 @@ dims (the stacked layer groups), and draws one leaf at a time.
 
 Attention over a whole sequence (train, prefill) goes through
 `kernels.flash_attention` (the CUDA kernel on a card, the plain version
-on the CPU) where the reference calls its XLA twin `chunked_attention`.
+on the CPU) where the reference calls its XLA twin `chunked_attention`;
+when a gradient is wanted (training) that is its autograd Function
+(forward kernel with the log-sum-exp, backward kernel), where the
+reference differentiates `chunked_attention` through XLA.
 Decode attends one token over the cache with a grouped product, as the
 reference does. Caches are written in place (`index_copy_`) and
 returned; their `pos` is a Python int, so decode never syncs the host.

@@ -12,20 +12,31 @@ Public API:
     model = Transformer(cfg)
     params = model.init(generator, device)          # device "meta": shapes
     logits = model.forward(params, batch)           # teacher forcing
+    loss = model.loss(params, batch)                # next-token CE (f32)
     cache = model.init_cache(batch_size, cache_len, device)
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode_step(params, tokens, cache)
 
+In train mode with `cfg.remat` (and a gradient wanted), each layer
+group runs under `torch.utils.checkpoint` (non-reentrant): its
+activations are dropped after the forward and recomputed in the
+backward from the group's (B, S, D) input, the counterpart of the
+reference's `jax.checkpoint(..., nothing_saveable)` around its scan
+body. Attention is differentiable through the flash kernels' autograd
+Function; the RG-LRU scan is forward-only (it raises when a gradient is
+asked for), so an rglru model does not train yet.
+
 Not ported yet (a later slice; each raises NotImplementedError): MoE,
 cross-attention and the encoder, `tokens+prefix`/`embeddings` inputs,
-and the mLSTM and sLSTM blocks. `loss`, and any backward through the
-kernels, come with the training slice.
+and the mLSTM and sLSTM blocks.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, RGLRU, SWA, ArchConfig
 from repro_torch.models import layers, recurrent
@@ -53,6 +64,17 @@ def _index(tree: PyTree, i: int) -> PyTree:
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i] if torch.is_tensor(tree) else tree
+
+
+def _unstack(tree: PyTree, n: int) -> list[PyTree]:
+    """The n layers of a stacked group tree, as n trees of views. One
+    `unbind` per leaf, so that autograd stacks the n layer gradients of
+    a leaf once, where indexing layer by layer would fill and add a
+    full-size gradient per layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 def _write_back(stacked: PyTree, i: int, new: PyTree,
@@ -154,21 +176,41 @@ class Transformer:
         return params
 
     # -- the stack ------------------------------------------------------------
+    def _group(self, group: PyTree, x: torch.Tensor, mode: str,
+               cache: Optional[PyTree] = None, i: int = 0
+               ) -> tuple[torch.Tensor, dict]:
+        """Group i of the stacked layers, its params unstacked. With a
+        cache, each layer reads its slice i of the stacked group cache
+        and writes its new cache back there; returns x and the layers'
+        new caches (None without a cache)."""
+        new = {}
+        for j, kind in enumerate(self.pattern):
+            lc = None if cache is None else _index(
+                cache["groups"][f"b{j}"], i)
+            x, new[j] = layer_apply(group[f"b{j}"], x, self.cfg, kind,
+                                    mode=mode, cache=lc)
+            if cache is not None:
+                _write_back(cache["groups"][f"b{j}"], i, new[j])
+        return x, new
+
     def _run(self, params: PyTree, x: torch.Tensor, cache: Optional[PyTree],
              mode: str) -> torch.Tensor:
         cfg = self.cfg
+        remat = (cache is None and mode == "train" and cfg.remat
+                 and torch.is_grad_enabled())
         last = {}
-        for i in range(self.n_rep):
-            for j, kind in enumerate(self.pattern):
-                lp = _index(params["groups"][f"b{j}"], i)
-                lc = None if cache is None else _index(
-                    cache["groups"][f"b{j}"], i)
-                x, nc = layer_apply(lp, x, cfg, kind, mode=mode, cache=lc)
-                if cache is not None:
-                    _write_back(cache["groups"][f"b{j}"], i, nc)
-                    last[j] = nc
-        for j, nc in last.items():
-            _write_back(cache["groups"][f"b{j}"], 0, nc, tensors=False)
+        groups = _unstack(params["groups"], self.n_rep) if self.n_rep else []
+        for i, group in enumerate(groups):
+            if remat:
+                # no random ops inside: no RNG state to stash
+                x = checkpoint(self._group, group, x, mode,
+                               use_reentrant=False,
+                               preserve_rng_state=False)[0]
+            else:
+                x, last = self._group(group, x, mode, cache, i)
+        if cache is not None:
+            for j, nc in last.items():
+                _write_back(cache["groups"][f"b{j}"], 0, nc, tensors=False)
         for r in range(self.n_rem):
             lc = None if cache is None else cache[f"rem{r}"]
             x, nc = layer_apply(params[f"rem{r}"], x, cfg, self.pattern[r],
@@ -189,6 +231,20 @@ class Transformer:
         x = layers.embed(params["embed"], self._tokens(batch))
         x = self._run(params, x, None, "train")
         return layers.unembed(params["embed"], x)
+
+    # -- loss ------------------------------------------------------------------
+    def loss(self, params: PyTree, batch: dict) -> torch.Tensor:
+        """Next-token cross-entropy in f32, the mean over the unmasked
+        targets. batch["labels"]: (B, S) with labels < 0 masked; the
+        logits at position t are scored against labels[t + 1]. (The
+        reference adds the MoE aux loss; with no MoE here it is 0.)"""
+        logits = self.forward(params, batch)[:, :-1]
+        targets = batch["labels"][:, 1:]
+        mask = targets >= 0
+        lp = F.log_softmax(logits.to(torch.float32), dim=-1)
+        del logits
+        ll = lp.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+        return -(ll * mask).sum() / mask.sum().clamp_min(1)
 
     # -- caches -----------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int, device) -> PyTree:

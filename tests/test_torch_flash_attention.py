@@ -113,10 +113,33 @@ def test_mask_matches_kernel_rule():
     np.testing.assert_array_equal(m.numpy(), want)
 
 
-def test_gradient_raises():
+def test_gradient_raises(monkeypatch):
+    """A gradient flows on CPU tensors, through the autograd Function's
+    plain backward (held to the reference in
+    tests/test_torch_flash_attention_bwd.py). Off the CPU, asking for a
+    gradient at a head dim the backward library is not built for raises
+    in the wrapper before any forward runs; meta tensors and a stub
+    library stand in for the card, the stub built for head dim 64 only."""
     q = torch.zeros((1, 4, 2, 32), requires_grad=True)
     k = torch.zeros((1, 4, 1, 32))
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ops.flash_attention(q, k, k)
+    out = ops.flash_attention(q, k, k)
+    assert out.requires_grad
+    (g,) = torch.autograd.grad(out.sum(), q)
+    assert g.shape == q.shape and bool(torch.isfinite(g).all())
     with torch.no_grad():
         assert ops.flash_attention(q, k, k).shape == q.shape
+
+    stub = type("Lib", (), {"fa_bwd_supports_head_dim":
+                            staticmethod(lambda hd: int(hd == 64))})
+    monkeypatch.setattr(ops, "_bwd_lib", lambda: stub)
+    for hd in (32, 256):
+        qm = torch.zeros((1, 4, 2, hd), device="meta", requires_grad=True)
+        km = torch.zeros((1, 4, 1, hd), device="meta")
+        with pytest.raises(ValueError, match=f"head_dim {hd}"):
+            ops.flash_attention(qm, km, km)
+    # a supported head dim passes the check and reaches the forward,
+    # which launches its kernel or raises: it never falls back
+    qm = torch.zeros((1, 4, 2, 64), device="meta", requires_grad=True)
+    km = torch.zeros((1, 4, 1, 64), device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ops.flash_attention(qm, km, km)
