@@ -23,28 +23,37 @@ Phases (any failure exits non-zero; no phase catches its own failure):
   6. the serve slice's kernels against their plain versions on the card:
      flash_attention at the RecurrentGemma-9B prefill shape (B 4, S 4096,
      16 heads over 1 kv head, hd 256, window 2048, bf16), at a ragged
-     shape (q_offset > 0, kv_len < Sk, fully masked rows) and in f32;
+     shape (q_offset > 0, kv_len < Sk, fully masked rows) and in f32,
+     each asserting its route (bf16: the tensor-core kernel, counted as
+     flash_attention; f32: the CUDA-core kernel, flash_attention_f32);
      rglru_scan at (4, 4096, 4096) f32; device, eager, plain and library
-     (SDPA for flash) times and the bounds;
+     (SDPA for flash) times and the bounds, and at the flash main shape
+     the CUDA-core kernel the tensor-core one replaces (bf16, same
+     inputs; it must be slower) and the f32 path;
   7. a small serve check: reduced recurrentgemma-9b in f32, prompt 96
      (past its window of 64), on the card against the CPU from the same
      params (through the bridge): logits and greedy tokens;
   8. drives the serve path: `repro_torch.launch.serve.serve` on
      recurrentgemma-9b at full width (reduced=False, random weights from
      a seed), batch 4, prompt 4096, gen 32, counts reset just before and
-     read just after: each prefill launches flash_attention 12 times and
-     rglru_scan 26 times, decode neither (a warm-up pass and the timed
-     pass: 24 and 52 in all); then profiles one more prefill and one
-     decode step;
+     read just after: each prefill launches flash_attention (the
+     tensor-core kernel) 12 times and rglru_scan 26 times, decode
+     neither (a warm-up pass and the timed pass: 24 and 52 in all);
+     then profiles one more prefill and one decode step;
   9. the mesh slice's kernels against their plain versions on the card:
      pso_update (Eq. 8) bitwise in f32 and bf16, clip on and off, at the
      largest SmolLM-360M leaf stacked over W = 2 (2 x 32 x 960 x 2560)
-     and at a ragged leaf; the flash backward against
-     `attention_bwd_ref` and against autograd of `attention_ref` at the
-     SmolLM shape (B 2, S 2048, 15 heads over 5, hd 64, causal) in bf16
-     and f32 and at a windowed, ragged GQA shape; device, eager, plain
-     and library times (SDPA forward + backward for the backward) and
-     the bounds;
+     and at a ragged leaf; the training forward and the flash backward
+     against `attention_bwd_ref` and against autograd of `attention_ref`
+     at the SmolLM shape (B 2, S 2048, 15 heads over 5, hd 64, causal) in
+     bf16 and f32 and at a windowed, ragged GQA shape, each asserting its
+     route as in phase 6; device, eager, plain and library times and the
+     bounds of the training forward at the SmolLM shape (library: SDPA's
+     forward alone) and of the backward (library: SDPA's backward alone
+     from one stored forward; SDPA forward + backward beside the kernels'
+     forward + backward), each beside the CUDA-core kernels it replaces
+     (which must be slower, and the backward also slower than its plain
+     version) and the f32 path;
  10. a small mesh check: two M-DSL rounds of reduced smollm-360m in f32
      (W = 2) on the card against the same rounds on the CPU, same
      params, batches and draws;
@@ -54,9 +63,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      reset just before and read just after: per round flash_attention
      launches 32 layers x (2 workers x 2 (forward, remat recompute) + 3
      evaluations) = 224 times, its backward 32 x 2 = 64 times and
-     pso_update once per leaf, 11 times; then profiles one more round;
- 12. prints the card line, the `kernels` JSON line and, last, the ok
-     line.
+     pso_update once per leaf, 11 times, and the CUDA-core flash kernels
+     (the _f32 counters) never; then profiles one more round;
+ 12. prints the card line, the `kernels` JSON line (each flash row with
+     its cores, the CUDA-core kernel's and the f32 path's times; a row of
+     the forward at the mesh shape) and, last, the ok line.
 
 Tolerances: payloads, scales, decodes and the wire_agg median bitwise;
 the error-feedback residual within 1 ulp of |acc| (fmaf in the kernel,
@@ -436,9 +447,59 @@ def flash_out_check(label, got, want):
     return err, amax, rule
 
 
+def flash_route(dtype: str, hd: int, bwd: bool = False) -> str:
+    """The counter a flash launch adds to: the tensor-core kernels take
+    bf16 at hd 64, 128, 256 (backward 64, 128); the CUDA-core ones the
+    rest."""
+    tc = dtype == "bfloat16" and hd in ((64, 128) if bwd else (64, 128, 256))
+    name = "flash_attention_bwd" if bwd else "flash_attention"
+    return name if tc else name + "_f32"
+
+
+def cuda_core_forward(q, k, v, causal, window, q_offset, lse=None):
+    """One launch of the CUDA-core forward kernel (the one the bf16
+    tensor-core kernel replaces) on the same inputs, for its time; the
+    port itself never routes bf16 at these head dims to it."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import ops as fops
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    err = fops._lib().fa_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Sk, H, K, hd,
+        fops._DTYPES[q.dtype], int(causal), window, q_offset, Sk,
+        1.0 / math.sqrt(hd), runtime.stream_ptr(q))
+    runtime.check(err, "CUDA-core flash_attention")
+    return out
+
+
+def cuda_core_backward(q, k, v, out, do, lse, causal, window, q_offset):
+    """One launch of the CUDA-core backward kernels on the same inputs,
+    for their time (as cuda_core_forward)."""
+    import torch
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import ops as fops
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty_like(v))
+    err = fops._bwd_lib().fa_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, hd,
+        fops._DTYPES[q.dtype], int(causal), window, q_offset, Sk,
+        1.0 / math.sqrt(hd), runtime.stream_ptr(q))
+    runtime.check(err, "CUDA-core flash_attention backward")
+    return dq, dk, dv
+
+
 def flash_case_check(dev, case, g):
     """Kernel against plain on one case; returns (max_abs_err, inputs)."""
     import torch
+    from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     (label, B, Sq, Sk, H, K, hd, dtype, causal, window, q_offset,
@@ -448,7 +509,11 @@ def flash_case_check(dev, case, g):
     k = torch.randn((B, Sk, K, hd), generator=g, device=dev).to(dt)
     v = torch.randn((B, Sk, K, hd), generator=g, device=dev).to(dt)
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
+    runtime.reset_counts()
     got = fops.flash_attention(q, k, v, **kw)
+    route = flash_route(dtype, hd)
+    check(runtime.counts() == {route: 1}, f"flash_attention {label}: "
+          f"launched {runtime.counts()}, expected {{{route!r}: 1}}")
     want = fref.attention_ref(q, k, v, causal=causal, window=window,
                               q_offset=Sk - Sq if q_offset is None
                               else q_offset, kv_len=kv_len)
@@ -460,8 +525,8 @@ def flash_case_check(dev, case, g):
         check(bool(empty.any()) and bool((got[:, empty] == 0).all()),
               f"flash_attention {label}: fully masked rows are not 0")
     print(f"[check] flash_attention {label} {dtype} B={B} Sq={Sq} Sk={Sk} "
-          f"H={H} K={K} hd={hd} window={window}: max abs err {err:.3g} "
-          f"(max |out| {amax:.3g}; within {rule})", flush=True)
+          f"H={H} K={K} hd={hd} window={window} ({route}): max abs err "
+          f"{err:.3g} (max |out| {amax:.3g}; within {rule})", flush=True)
     return err, (q, k, v, kw)
 
 
@@ -501,16 +566,28 @@ def serve_kernel_checks(dev):
          "plain_ms": time_ms(lambda: fref.attention_ref(
              q, k, v, causal=True, window=kw["window"]), 3),
          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-             qt, kt, vt, attn_mask=mask), 10)}
+             qt, kt, vt, attn_mask=mask), 10),
+         # the CUDA-core kernel the tensor-core one replaces, same inputs
+         "cuda_core_ms": graph_ms(lambda: cuda_core_forward(
+             q, k, v, True, kw["window"], 0), 3)}
+    del qt, kt, vt
+    # the f32 path (the CUDA-core kernel) at this shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    t["f32_ms"] = graph_ms(lambda: fops.flash_attention(qf, kf, vf, **kw), 3)
+    del qf, kf, vf
     out["flash_attention"] = dict(t, max_abs_err=max(e for e, _ in errs),
                                   bound_ms=bnd, bound_by=by)
     print(f"[time] flash_attention main (B={B} S={S} H={H} K={K} hd={hd} "
-          f"window={kw['window']} bf16): device {t['ms']:.4f} ms/launch, "
-          f"eager call {t['eager_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
-          f"library (SDPA, bool mask) {t['library_ms']:.4f} ms "
-          f"(max |SDPA - plain| {sdpa_err:.3g}), bound {bnd:.4g} ms ({by}; "
-          f"{pairs} pairs, {nbytes} B)", flush=True)
-    del q, k, v, qt, kt, vt, mask, errs
+          f"window={kw['window']} bf16, tensor cores): device {t['ms']:.4f} "
+          f"ms/launch, eager call {t['eager_ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.3f} ms, library (SDPA, bool mask) "
+          f"{t['library_ms']:.4f} ms (max |SDPA - plain| {sdpa_err:.3g}), "
+          f"the CUDA-core kernel it replaces {t['cuda_core_ms']:.4f} ms, the "
+          f"f32 path {t['f32_ms']:.4f} ms; bound {bnd:.4g} ms ({by}; "
+          f"{pairs} pairs at 4 hd operations, {nbytes} B)", flush=True)
+    check(t["ms"] < t["cuda_core_ms"], "flash_attention main: the "
+          "tensor-core kernel is not faster than the CUDA-core one")
+    del q, k, v, mask, errs
     torch.cuda.empty_cache()
 
     # the scan, bitwise, at the main prefill's shape
@@ -569,7 +646,7 @@ def small_serve_check(dev):
           f"small serve: card vs CPU logits max abs err {err}")
     check(torch.equal(got.tokens.cpu(), want.tokens),
           "small serve: greedy tokens differ between card and CPU")
-    check(got.launches == {"prefill": {"flash_attention": 1,
+    check(got.launches == {"prefill": {"flash_attention_f32": 1,
                                        "rglru_scan": 2}, "decode": {}},
           f"small serve: launches {got.launches}")
     print(f"[small] serve {cfg.name} f32 B=2 prompt 96 gen 8, card vs CPU: "
@@ -667,7 +744,7 @@ def profile_serve(dev) -> None:
 
     rows = device_rows(prof)
     total = sum(dev_us(e) for e in rows) / 1e3
-    flash = ms_of(rows, "flash_attention_kernel")
+    flash = ms_of(rows, "fwd_tc_kernel", "flash_attention_kernel")
     scan = ms_of(rows, "rglru_scan_kernel")
     gemm = ms_of(rows, *gemm_words)
     print(f"[profile] one full-width prefill (B={SERVE_BATCH} S="
@@ -773,10 +850,12 @@ def pso_checks(dev):
 
 
 def flash_bwd_case(dev, case, g):
-    """The backward kernel against `attention_bwd_ref` and autograd of
-    `attention_ref` on one case; returns (max_abs_err vs the plain
-    backward, the inputs)."""
+    """The training forward against the plain one and the backward kernel
+    against `attention_bwd_ref` and autograd of `attention_ref` on one
+    case; returns (max_abs_err vs the plain backward, the inputs, the
+    forward's max_abs_err)."""
     import torch
+    from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     (label, B, Sq, Sk, H, K, hd, dtype, causal, window, q_offset,
@@ -792,11 +871,15 @@ def flash_bwd_case(dev, case, g):
     # the training forward (the one that writes the log-sum-exp) against
     # the plain forward at this shape: out, and lse (-inf on rows with
     # no valid key, in the same rows)
+    runtime.reset_counts()
     out, lse = fops._forward(q, k, v, causal, window, q_offset, kv_len, True)
+    route = flash_route(dtype, hd)
+    check(runtime.counts() == {route: 1}, f"flash forward {label}: "
+          f"launched {runtime.counts()}, expected {{{route!r}: 1}}")
     want, want_lse = fref.attention_ref(q, k, v, **kw, return_lse=True)
     torch.cuda.synchronize()
-    err, amax, rule = flash_out_check(f"{label} (training forward)", out,
-                                      want)
+    fwd_err, amax, rule = flash_out_check(f"{label} (training forward)",
+                                          out, want)
     fin = torch.isfinite(want_lse)
     check(torch.equal(torch.isfinite(lse), fin)
           and bool((lse[~fin] == want_lse[~fin]).all()),
@@ -806,12 +889,17 @@ def flash_bwd_case(dev, case, g):
     check(lerr <= LSE_ATOL, f"flash forward {label}: lse max abs err {lerr} "
                             f"exceeds {LSE_ATOL:g}")
     print(f"[check] flash forward (with lse) {label} {dtype} B={B} Sq={Sq} "
-          f"Sk={Sk} H={H} K={K} hd={hd} window={window}: out max abs err "
-          f"{err:.3g} (max |out| {amax:.3g}; within {rule}), lse max abs "
+          f"Sk={Sk} H={H} K={K} hd={hd} window={window} ({route}): out max "
+          f"abs err {fwd_err:.3g} (max |out| {amax:.3g}; within {rule}), lse "
+          f"max abs "
           f"err {lerr:.3g} (within {LSE_ATOL:g}; {int((~fin).sum())} rows "
           f"-inf in both)", flush=True)
     del want, want_lse
+    runtime.reset_counts()
     got = fops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    route = flash_route(dtype, hd, bwd=True)
+    check(runtime.counts() == {route: 1}, f"flash backward {label}: "
+          f"launched {runtime.counts()}, expected {{{route!r}: 1}}")
     plain = fref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
     xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     auto = torch.autograd.grad(fref.attention_ref(*xs, **kw), xs, do)
@@ -839,8 +927,8 @@ def flash_bwd_case(dev, case, g):
                       f"{float(diff.max())} exceeds {rule}")
             if name == "plain":
                 errs.append(float(diff.max()))
-            print(f"[check] flash backward {label} {dtype} d{n} vs {name}: "
-                  f"max abs err {float(diff.max()):.3g} (max |grad| "
+            print(f"[check] flash backward {label} {dtype} d{n} vs {name} "
+                  f"({route}): max abs err {float(diff.max()):.3g} (max |grad| "
                   f"{amax:.3g}; within {rule})", flush=True)
     if kv_len is not None and window:
         pos = kw["q_offset"] + torch.arange(Sq, device=dev)
@@ -848,7 +936,7 @@ def flash_bwd_case(dev, case, g):
         check(bool(empty.any()) and bool((got[0][:, empty] == 0).all()),
               f"flash backward {label}: fully masked rows get a gradient")
     del plain, auto, xs
-    return max(errs), (q, k, v, out, do, lse, kw)
+    return max(errs), (q, k, v, out, do, lse, kw), fwd_err
 
 
 def flash_bwd_checks(dev):
@@ -871,11 +959,49 @@ def flash_bwd_checks(dev):
                   f"{'accepted' if hd == 256 else 'refused'}")
     print("[check] flash backward library: head dims 64 and 128 accepted, "
           "256 refused", flush=True)
-    err = max(e for e, _ in results)
+    err = max(r[0] for r in results)
     q, k, v, out, do, lse, kw = results[0][1]
     B, S, H, hd = q.shape
     K = k.shape[2]
     pairs = B * H * S * (S + 1) // 2          # unmasked (query, key) pairs
+    G = H // K
+    # the library yardsticks (timed here, used nowhere in the port): SDPA,
+    # causal, with the kv heads repeated
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.transpose(1, 2).repeat_interleave(G, 1).contiguous() \
+        .requires_grad_()
+    vt = v.transpose(1, 2).repeat_interleave(G, 1).contiguous() \
+        .requires_grad_()
+    dot = do.transpose(1, 2)
+
+    # the training forward at this shape (its most launched shape: 224
+    # launches a mesh round), with the log-sum-exp, against SDPA's
+    # forward alone
+    def fwd():
+        return fops._forward(q, k, v, True, 0, None, None, True)
+
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+    bnd, by = bound_ms(nbytes, 4 * hd * pairs, BF16_OPS_PER_S)
+    with torch.no_grad():
+        tf = {"ms": graph_ms(fwd, 10), "eager_ms": time_ms(fwd, 10),
+              "plain_ms": time_ms(lambda: fref.attention_ref(
+                  q, k, v, causal=True, return_lse=True), 3),
+              "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                  qt, kt, vt, is_causal=True), 10),
+              "cuda_core_ms": graph_ms(lambda: cuda_core_forward(
+                  q, k, v, True, 0, 0, torch.empty_like(lse)), 5)}
+    fwd_row = dict(tf, bound_ms=bnd, bound_by=by,
+                   max_abs_err=results[0][2])
+    print(f"[time] flash forward mesh (B={B} S={S} H={H} K={K} hd={hd} "
+          f"causal bf16, with lse, tensor cores): device {tf['ms']:.4f} "
+          f"ms/launch, eager call {tf['eager_ms']:.4f} ms, plain "
+          f"{tf['plain_ms']:.3f} ms, library (SDPA forward, causal) "
+          f"{tf['library_ms']:.4f} ms, the CUDA-core kernel it replaces "
+          f"{tf['cuda_core_ms']:.4f} ms; bound {bnd:.4g} ms ({by}; {pairs} "
+          f"pairs at 4 hd operations, {nbytes} B)", flush=True)
+    check(tf["ms"] < tf["cuda_core_ms"], "flash forward mesh: the "
+          "tensor-core kernel is not faster than the CUDA-core one")
+
     nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
                   + do.numel()) + 4 * lse.numel()
     bnd, by = bound_ms(nbytes, 10 * hd * pairs, BF16_OPS_PER_S)
@@ -887,35 +1013,48 @@ def flash_bwd_checks(dev):
         o, lz = fops._forward(q, k, v, True, 0, None, None, True)
         return fops.flash_attention_bwd(q, k, v, o, do, lz, **kw)
 
-    # the library yardstick: SDPA forward + backward, causal, with the
-    # kv heads repeated (timed here, used nowhere in the port)
-    qt = q.transpose(1, 2).contiguous().requires_grad_()
-    kt = k.transpose(1, 2).repeat_interleave(H // K, 1).contiguous() \
-        .requires_grad_()
-    vt = v.transpose(1, 2).repeat_interleave(H // K, 1).contiguous() \
-        .requires_grad_()
-    dot = do.transpose(1, 2)
-
     def sdpa():
         o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         return torch.autograd.grad(o, (qt, kt, vt), dot)
 
+    # SDPA's backward alone: one stored forward, its graph kept
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     t = {"ms": graph_ms(bwd, 5), "eager_ms": time_ms(bwd, 10),
          "plain_ms": time_ms(lambda: fref.attention_bwd_ref(
              q, k, v, out, do, lse, **kw), 3),
-         "library_ms": time_ms(sdpa, 10)}
+         "library_ms": time_ms(lambda: torch.autograd.grad(
+             o_sdpa, (qt, kt, vt), dot, retain_graph=True), 10),
+         "library_fwd_bwd_ms": time_ms(sdpa, 10),
+         "cuda_core_ms": graph_ms(lambda: cuda_core_backward(
+             q, k, v, out, do, lse, True, 0, 0), 3)}
+    del o_sdpa
     fb = time_ms(fwd_bwd, 10)
+    # the f32 path (the CUDA-core kernels) at this shape
+    f32 = [x.float() for x in (q, k, v, do)]
+    with torch.no_grad():
+        of, lf = fops._forward(*f32[:3], True, 0, None, None, True)
+        t["f32_ms"] = graph_ms(lambda: fops.flash_attention_bwd(
+            *f32[:3], of, f32[3], lf, **kw), 3)
+        fwd_row["f32_ms"] = graph_ms(lambda: fops._forward(
+            *f32[:3], True, 0, None, None, True), 3)
+    del f32, of, lf
     print(f"[time] flash backward main (B={B} S={S} H={H} K={K} hd={hd} "
-          f"causal bf16): device {t['ms']:.4f} ms/launch, eager call "
-          f"{t['eager_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms; kernel "
-          f"forward (with lse) + backward {fb:.4f} ms against library "
-          f"(SDPA forward + backward, causal) {t['library_ms']:.4f} ms; "
-          f"bound {bnd:.4g} ms ({by}; {pairs} pairs at 10 hd operations, "
-          f"{nbytes} B)", flush=True)
+          f"causal bf16, tensor cores): device {t['ms']:.4f} ms/launch, "
+          f"eager call {t['eager_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+          f"library (SDPA backward alone) {t['library_ms']:.4f} ms, the "
+          f"CUDA-core kernels it replaces {t['cuda_core_ms']:.4f} ms, the f32 "
+          f"path {t['f32_ms']:.4f} ms (forward {fwd_row['f32_ms']:.4f} ms); "
+          f"kernel forward (with lse) + backward {fb:.4f} ms against library "
+          f"(SDPA forward + backward, causal) {t['library_fwd_bwd_ms']:.4f} "
+          f"ms; bound {bnd:.4g} ms ({by}; {pairs} pairs at 10 hd "
+          f"operations, {nbytes} B)", flush=True)
+    check(t["ms"] < t["cuda_core_ms"] and t["ms"] < t["plain_ms"],
+          "flash backward main: the tensor-core kernels are not faster than "
+          "the CUDA-core ones and the plain backward")
     del results, q, k, v, out, do, lse, qt, kt, vt
     torch.cuda.empty_cache()
-    return dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by,
-                fwd_bwd_ms=fb)
+    return (dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by,
+                 fwd_bwd_ms=fb), fwd_row)
 
 
 def small_mesh_check(dev):
@@ -974,8 +1113,10 @@ def small_mesh_check(dev):
               f"{MESH_LOSS_TOL:g}), params and velocity {perr:.3g} (tol "
               f"{MESH_PARAM_TOL:g})", flush=True)
     counts = runtime.counts()
-    want = {k: 2 * n for k, n in mesh_launches_per_round(
-        cfg, len(tree_leaves(cpu_params))).items()}
+    # f32: the flash kernels take the CUDA-core route
+    want = {(k + "_f32" if k.startswith("flash") else k): 2 * n
+            for k, n in mesh_launches_per_round(
+                cfg, len(tree_leaves(cpu_params))).items()}
     check(counts == want, f"small mesh rounds launched {counts}, expected "
                           f"{want}")
 
@@ -1077,8 +1218,9 @@ def profile_mesh(spec) -> None:
 
     busy = sum(dev_us(e) for e in rows) / 1e3
     gemm = ms_of("gemm", "gemv", "xmma", "cutlass", "sm90_", "nvjet")
-    fwd = ms_of("flash_attention_kernel")
-    bwd = ms_of("dkdv_kernel", "dq_kernel", "dot_kernel")
+    fwd = ms_of("fwd_tc_kernel", "flash_attention_kernel")
+    bwd = ms_of("dkdv_tc_kernel", "dq_tc_kernel", "prep_tc_kernel",
+                "dkdv_kernel", "dq_kernel", "dot_kernel")
     pso = ms_of("pso_update_kernel")
     print(f"[profile] one full-width mesh round: wall {wall_ms:.1f} ms "
           f"(profiler on), device busy {busy:.1f} ms "
@@ -1166,8 +1308,9 @@ def main() -> None:
     serve_counts = serve_main_path()
     profile_serve(dev)
 
+    bwd_row, mesh_fwd_row = flash_bwd_checks(dev)
     mesh_stats = {"pso_update": pso_checks(dev),
-                  "flash_attention_bwd": flash_bwd_checks(dev)}
+                  "flash_attention_bwd": bwd_row}
     small_mesh_check(dev)
     mesh_counts, mesh_spec = mesh_main_path()
     profile_mesh(mesh_spec)
@@ -1201,9 +1344,16 @@ def main() -> None:
                  "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                  "eager_ms": s["eager_ms"], "check": "pass"}
                 for name, s in serve_stats.items()]
-    # flash_attention also runs on the mesh path: its launches there
-    next(k for k in kernels if k["name"] == "flash_attention")[
-        "launches_mesh"] = mesh_counts["flash_attention"]
+    # flash_attention also runs on the mesh path: its launches there, and
+    # a row of its own at the mesh shape (its most launched one)
+    fa = next(k for k in kernels if k["name"] == "flash_attention")
+    fa["launches_mesh"] = mesh_counts["flash_attention"]
+    kernels.append(dict(
+        fa, name="flash_attention (mesh shape)",
+        launches=mesh_counts["flash_attention"], launches_mesh=None,
+        **{key: mesh_fwd_row[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "eager_ms", "cuda_core_ms", "f32_ms")}))
     replaces = {
         "pso_update": "src/repro/kernels/pso_update/pso_update.py:42",
         # no TPU kernel: XLA's autodiff of chunked_attention
@@ -1218,6 +1368,19 @@ def main() -> None:
                  "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                  "eager_ms": s["eager_ms"], "check": "pass"}
                 for name, s in mesh_stats.items()]
+    # the flash kernels' route, and the times of the CUDA-core kernels
+    # they replace (bf16) and of the f32 path (the CUDA-core kernels)
+    for k in kernels:
+        if k["name"].startswith("flash_attention"):
+            st = (mesh_stats["flash_attention_bwd"]
+                  if k["name"] == "flash_attention_bwd" else
+                  mesh_fwd_row if "mesh" in k["name"]
+                  else serve_stats["flash_attention"])
+            k.update(cores="tensor cores", cuda_core_ms=st["cuda_core_ms"],
+                     f32_ms=st["f32_ms"])
+    next(k for k in kernels if k["name"] == "flash_attention_bwd")[
+        "library_fwd_bwd_ms"] = \
+        mesh_stats["flash_attention_bwd"]["library_fwd_bwd_ms"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,45 +4,77 @@
 //
 // Replaces the Pallas TPU kernel
 // repro/kernels/flash_attention/flash_attention.py:
-//   flash_attention_kernel  <- flash_attention_bh (_kernel), with the
-//                              GQA repeat and padding of ops.py folded in
+//   fwd_tc_kernel (bf16, hd 64/128/256),    <- flash_attention_bh (:97)
+//   flash_attention_kernel (f32; bf16 hd 32)   and its _kernel, with the
+//                                              GQA repeat and padding of
+//                                              ops.py folded in
 //
 // Layout: q and out (B, Sq, H, hd), k and v (B, Sk, K, hd), contiguous,
 // f32 or bf16. Query row i has absolute position q_offset + i; key j is
 // valid iff j < kv_len, and (causal) j <= q_pos, and (window > 0)
-// j > q_pos - window. A row with no valid key gives 0.
+// j > q_pos - window. A row with no valid key gives 0. With a non-null
+// `lse` (the training forward) each row's log-sum-exp m + log(l) of the
+// scaled scores goes to a (B, H, Sq) f32 buffer (-inf for a row with no
+// valid key): the backward (flash_attention_bwd.cu) recomputes P from
+// it. Only the kv tiles that hold a valid key for some row of the block
+// are visited: [q_lo - window + 1, min(kv_len, q_hi + 1)).
 //
-// What bounds it here: at RecurrentGemma-9B's prefill (B 4, H 16, MQA,
-// hd 256, S 4096, window 2048) the 4*hd operations per unmasked
-// (query, key) pair dominate: ~4e11 operations against ~0.3 GB of
-// q, k, v and out, so the tensor-core rate is the bound. This first
-// kernel runs on the CUDA cores in f32 (scores, running max and sum,
-// accumulator, and P.V with P in f32); a tensor-core (wgmma) version is
-// later work.
+// What bounds it: operations. Counted as 4 hd a unmasked (query, key)
+// pair (Q.K^T and P.V) at the bf16 tensor-core peak, 989 TFLOP/s: at
+// RecurrentGemma-9B's prefill (B 4, H 16 over 1 kv head, hd 256, S 4096,
+// window 2048; 4.03e8 pairs) 0.417 ms; at SmolLM-360M's training shape
+// (B 2, H 15 over 5, hd 64, S 2048, causal; 6.29e7 pairs) 0.016 ms.
 //
-// What the design does:
-// - One block of 256 threads per (64 query rows, head, batch). Four
-//   neighbouring threads share a query row; each holds a quarter of the
-//   row's q (pre-loaded to registers, f32) and the same quarter of its
-//   output accumulator, interleaved in 4-float chunks so that the four
-//   read neighbouring 16-byte words of shared memory.
-// - kv tiles of 32 keys are staged in shared memory as f32 (K and V,
-//   32 KiB each at hd 256, opted in above 48 KiB). A score is the sum of
-//   the four quarter dot products (two xor shuffles; the same value in
-//   all four threads).
-// - Only the kv tiles that hold at least one valid key for some row of
-//   the block are visited: [q_lo - window + 1, min(kv_len, q_hi + 1)).
-//   At S 4096 and window 2048 that is about half of all tiles. Ragged
-//   edges (Sq, Sk not multiples of a tile) are bounds checks, not
-//   padding. kv head h / (H / K) is indexed, never repeated.
-// - With a non-null `lse` (the training forward) each row's log-sum-exp
-//   m + log(l) of the scaled scores is written to a (B, H, Sq) f32
-//   buffer (-inf for a row with no valid key): the backward kernels
-//   (flash_attention_bwd.cu) recompute P from it.
+// The bf16 kernel (fwd_tc_kernel) runs both products on the tensor
+// cores (wgmma, flash_wgmma.cuh) and issues 8 hd operations a pair (10
+// hd at hd 256, below), not 4 hd: S = Q.K^T takes bf16 q and k exactly
+// (f32 accumulation), but P rounded once to bf16 for P.V misses the
+// forward's rule (2 bf16 ulps of the plain f32 softmax, ulp floored at
+// 2^-16 of the largest output) at ~7% of the outputs at S 2048, and P
+// split into two bf16 terms still misses at hd 256 with a window. So P
+// is split into three bf16 terms (hi + mid + lo, each the rounded
+// remainder of the ones before), and P.V is three wgmmas a k-slice; this
+// matches unsplit f32 P within the rule (tests/test_torch_flash_attention.py
+// emulates it).
+//
+// A second finding on the card sets the accumulation: the tensor cores'
+// adds truncate, so a P.V chain over every kv tile of a long row drifted
+// past the rule at the serve shape, while a chain over one tile stays
+// within it, as the CUDA-core kernel does. Each tile's P.V goes to a
+// fresh accumulator and O = O * alpha + P.V is an f32 fma.
+//
+// What that design does:
+// - One block of three warpgroups, the blocks that see the most keys
+//   launched first. The producer warpgroup gives up its
+//   registers (setmaxnreg 24); one of its threads loads the Q tile once
+//   and then keeps a ring of 2 (hd 256) or 3 K/V stages of 64 keys in
+//   flight by TMA (4D maps over (hd, heads, S, B), so a ragged tile
+//   reads zeros past S, never the next batch), each stage behind a
+//   "full" and an "empty" mbarrier.
+// - Two consumer warpgroups (setmaxnreg 240) take every stage. At hd 64
+//   and 128 a block has 128 query rows, 64 a consumer, with all hd
+//   columns of O. At hd 256 a block has 64 rows and each consumer half
+//   of O's columns (both compute S): O plus its per-tile partial is
+//   2 x 64 f32 registers a thread, where all 256 columns would need 256.
+// - Per stage: S = Q.K^T by hd / 16 wgmmas from shared memory; the mask
+//   on boundary tiles only (a tile whose every pair is valid skips it);
+//   the online max and sum in f32 on the accumulator fragment, four
+//   lanes a row, expf as in the f32 kernel; P split in registers; the
+//   partial P.V by 3 x 4 register-A wgmmas with V read MN-major.
+// - Rows with no valid key keep p = 0 (the mask selects, it does not
+//   add -inf), so l = 0, out = 0 and lse = -inf, with no NaN.
+//
+// The f32 kernel (flash_attention_kernel, also bf16 at hd 32) runs on
+// the CUDA cores in f32: one block of 256 threads per (64 query rows,
+// head, batch), four threads a row each holding an interleaved quarter
+// of hd, kv tiles of 32 keys staged in shared memory as f32, a score the
+// sum of four quarter dot products (two xor shuffles).
 // Build without --use_fast_math (expf, IEEE division).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -269,6 +301,238 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// -- the tensor-core kernel: bf16 at hd 64, 128 and 256 ------------------
+
+constexpr int kTcThreads = 384;   // producer + two consumer warpgroups
+
+// hd 64 and 128: each consumer warpgroup owns 64 query rows and all hd
+// output columns. hd 256: both own the same 64 rows, half the columns
+// each (both compute S), so that O and its per-tile partial fit in
+// registers.
+template <int HD>
+struct FwdTc {
+  static constexpr int kSplit = HD == 256 ? 2 : 1;
+  static constexpr int kRows = 128 / kSplit;      // query rows a block
+  static constexpr int kCols = HD / kSplit;       // O columns a consumer
+  static constexpr int kTile = fa_tc::kTileRows * HD * 2;   // 64 rows
+  static constexpr int kStages = HD == 256 ? 2 : 3;
+  static constexpr int kQ = kRows / 64 * kTile;
+  static constexpr int kSmem =
+      1024 + kQ + 2 * kStages * kTile + 8 * (1 + 2 * kStages);
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+              int Sq, int Sk, int H, int K, int causal, int window,
+              int q_offset, int kv_len, float scale) {
+  using namespace fa_tc;
+  using L = FwdTc<HD>;
+  constexpr int NC = L::kCols;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align_1024(smem_raw);        // kRows / 64 tiles
+  uint8_t* skv = sq + L::kQ;                 // stage s: K tile, V tile
+  uint64_t* q_full =
+      reinterpret_cast<uint64_t*>(skv + 2 * L::kStages * L::kTile);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + L::kStages;
+
+  // the grid's slowest dimension walks the query blocks from the last:
+  // under a causal mask the blocks that see the most keys start first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kh = h / (H / K);
+  const int q_first = (gridDim.z - 1 - blockIdx.z) * L::kRows;
+  const int kv_end = min(kv_len, Sk);
+  int t_begin, t_end;
+  kv_tiles(q_first, L::kRows, Sq, q_offset, kv_end, causal, window, &t_begin,
+           &t_end);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);     // every consumer thread
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    // producer: one thread issues every load
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kQ);
+      for (int r = 0; r < L::kRows / 64; ++r)
+        tma_load_tile<HD>(sq + r * L::kTile, &tq, q_full, h, q_first + 64 * r,
+                          b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = t_begin; tile < t_end; ++tile) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* kt = skv + stage * 2 * L::kTile;
+        mbar_expect_tx(&full[stage], 2 * L::kTile);
+        tma_load_tile<HD>(kt, &tk, &full[stage], kh, tile * kTileRows, b);
+        tma_load_tile<HD>(kt + L::kTile, &tv, &full[stage], kh,
+                          tile * kTileRows, b);
+        if (++stage == L::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // consumers
+    regs_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int blk = L::kSplit == 1 ? wg - 1 : 0;    // row block
+    const int half = L::kSplit == 1 ? 0 : wg - 1;   // column block
+    const int row0 = q_first + 64 * blk;
+    const int ra = row0 + frag_row(0, tid);   // this thread's rows ra, ra + 8
+    const uint8_t* qt = sq + blk * L::kTile;
+    float o[NC / 2];
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = t_begin; tile < t_end; ++tile) {
+      const int k0 = tile * kTileRows;
+      mbar_wait(&full[stage], phase);
+      const uint8_t* kt = skv + stage * 2 * L::kTile;
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      wg_fence();
+      gemm_ss<HD>(s, qt, kt);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+
+      // scale; the mask only where some pair of the tile is invalid
+      uint32_t valid = 0xffffffffu;
+      if (tile_all_valid(row0, k0, Sq, kv_end, causal, window, q_offset)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] *= scale;
+      } else {
+        valid = 0u;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = k0 + frag_col(i, tid);
+          const int pos = q_offset + ra + 8 * ((i >> 1) & 1);
+          bool ok = key < kv_end;
+          if (causal) ok = ok && key <= pos;
+          if (window > 0) ok = ok && key > pos - window;
+          s[i] = ok ? s[i] * scale : kNegInf;
+          valid |= (ok ? 1u : 0u) << i;
+        }
+      }
+      // online softmax, rows ra (r = 0) and ra + 8 (r = 1)
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      mx[0] = quad_max(mx[0]);
+      mx[1] = quad_max(mx[1]);
+      const float alpha[2] = {expf(m[0] - mx[0]), expf(m[1] - mx[1])};
+      float ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = ((valid >> i) & 1u) ? expf(s[i] - mx[(i >> 1) & 1]) : 0.f;
+        ps[(i >> 1) & 1] += s[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] = alpha[r] * l[r] + quad_sum(ps[r]);
+        m[r] = mx[r];
+      }
+
+      // this tile's P.V with P in three bf16 terms, into a fresh
+      // accumulator: the tensor cores' adds truncate, and a chain over
+      // every tile of a long row drifts past the rule; one tile's chain
+      // does not. O = O * alpha + P.V in f32 on the CUDA cores.
+      const uint8_t* vt = kt + L::kTile + half * (NC / 64) * kBoxBytes;
+      uint32_t pf[4][3][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) to_frag<3>(s, kk, pf[kk]);
+      float pv[NC / 2];
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) pv[i] = 0.f;
+      wg_fence();
+      fence_regs(pv);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int t = 0; t < 3; ++t)
+          wgmma_rs<NC>(pv, pf[kk][t], desc_mn(vt, kk), 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(pv);
+      mbar_arrive(&empty[stage]);
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i)
+        o[i] = fmaf(o[i], alpha[(i >> 1) & 1], pv[i]);
+      if (++stage == L::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = ra + 8 * r;
+      if (row >= Sq) continue;
+      const float den = fmaxf(l[r], 1e-30f);
+      const size_t q_row = (static_cast<size_t>(b) * Sq + row) * H + h;
+      __nv_bfloat16* orow = out + q_row * HD + half * NC;
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * (tid & 3)) =
+            pack_bf16(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+      }
+      // the row's log-sum-exp, for the backward (-inf: no valid key)
+      if (lse != nullptr && half == 0 && (tid & 3) == 0) {
+        lse[(static_cast<size_t>(b) * H + h) * Sq + row] =
+            l[r] > 0.f ? m[r] + logf(l[r]) : __int_as_float(0xff800000);
+      }
+    }
+  }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              void* lse, int B, int Sq, int Sk, int H, int K, int causal,
+              int window, int q_offset, int kv_len, float scale,
+              cudaStream_t s) {
+  using L = FwdTc<HD>;
+  CUtensorMap tq, tk, tv;
+  int e = fa_tc::make_map(&tq, q, HD, H, Sq, B);
+  if (e == 0) e = fa_tc::make_map(&tk, k, HD, K, Sk, B);
+  if (e == 0) e = fa_tc::make_map(&tv, v, HD, K, Sk, B);
+  if (e != 0) return e;
+  // opt in to the dynamic shared memory once, before the first launch
+  // (outside any CUDA-graph capture that follows it)
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fwd_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
+  const dim3 grid(H, B, (Sq + L::kRows - 1) / L::kRows);
+  fwd_tc_kernel<HD><<<grid, kTcThreads, L::kSmem, s>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      Sq, Sk, H, K, causal, window, q_offset, kv_len, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Head dims this kernel is built for; the wrapper raises on others.
@@ -292,4 +556,36 @@ extern "C" int fa_flash_attention(const void* q, const void* k, const void* v,
                                    s);
   return dispatch<float>(hd, q, k, v, out, lse, B, Sq, Sk, H, K, causal,
                          window, q_offset, kv_len, scale, s);
+}
+
+// Head dims the tensor-core kernel is built for (bf16 only); the wrapper
+// routes other bf16 head dims and f32 to fa_flash_attention.
+extern "C" int fa_tc_supports_head_dim(int hd) {
+  return hd == 64 || hd == 128 || hd == 256;
+}
+
+// The bf16 tensor-core forward: q, k, v, out bf16 with 16-byte aligned
+// bases; lse null or (B, H, Sq) f32. Returns 0, the error of building a
+// tensor map or of the shared-memory opt-in, or cudaGetLastError() after
+// the launch.
+extern "C" int fa_flash_attention_tc(const void* q, const void* k,
+                                     const void* v, void* out, void* lse,
+                                     int B, int Sq, int Sk, int H, int K,
+                                     int hd, int causal, int window,
+                                     int q_offset, int kv_len, float scale,
+                                     void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64:
+      return launch_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+                           window, q_offset, kv_len, scale, s);
+    case 128:
+      return launch_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+                            window, q_offset, kv_len, scale, s);
+    case 256:
+      return launch_tc<256>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+                            window, q_offset, kv_len, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -9,38 +9,88 @@
 // own kernel for the gradient of the attention it runs.
 //
 // Layout: q, o, do, dq (B, Sq, H, hd); k, v, dk, dv (B, Sk, K, hd); all
-// contiguous, f32 or bf16; lse and the scratch dsum (B, H, Sq) f32. The
-// forward's masks: query row i sits at position q_offset + i; key j is
-// valid iff j < kv_len, and (causal) j <= q_pos, and (window > 0)
+// contiguous, f32 or bf16; lse (B, H, Sq) f32. The forward's masks:
+// query row i sits at position q_offset + i; key j is valid iff
+// j < kv_len, and (causal) j <= q_pos, and (window > 0)
 // j > q_pos - window. A row with no valid key has lse = -inf and gets
 // zero gradient (p is 0 wherever the mask is false).
 //
 // FlashAttention-2's split, three launches on one stream:
-//   1. dot_kernel:  dsum = rowsum(dO * O) (f32), one warp per row;
-//   2. dkdv_kernel: one block per (64 keys, kv head, batch). It walks the
-//      H / K query heads that share the kv head and, for each, the query
-//      tiles that see one of its keys; recomputes P = exp(S * scale -
-//      lse) and accumulates dV += P^T dO and dK += dS^T Q * scale with
+//   1. dsum = rowsum(dO * O) (f32), one warp a row (dot_kernel; for the
+//      bf16 kernels prep_tc_kernel, which also copies lse, both into
+//      (B, H, Sqp) buffers zero-padded to Sqp = 64 ceil(Sq / 64));
+//   2. dK, dV: one block per (keys, kv head, batch) walks the H / K
+//      query heads that share its kv head and, for each, the query tiles
+//      that see one of its keys; recomputes P = exp(S * scale - lse) and
+//      accumulates dV += P^T dO and dK += dS^T Q * scale with
 //      dS = P * (dO V^T - dsum);
-//   3. dq_kernel:   one block per (64 query rows, head, batch) walks the
-//      kv tiles its rows see and accumulates dQ += dS K * scale.
+//   3. dQ: one block per (query rows, head, batch) walks the kv tiles
+//      its rows see and accumulates dQ += dS K * scale.
 // Each output element is summed by one thread in a fixed order: no
 // atomics, so the result is the same from run to run.
 //
-// What bounds it here: operations. Per unmasked (query, key) pair the
-// two kernels do ~7 hd multiply-adds (the bound counts the usual 10 hd
-// operations at the tensor-core rate) against bytes read once per tile.
-// This first kernel runs on the CUDA cores in f32, as the forward does:
-// four threads share a key row (dkdv) or a query row (dq), each holding
-// an interleaved quarter of hd in registers (its row's k, v and the two
-// accumulators, or q, dO and the accumulator); dot products are the sum
-// of the four quarters (two xor shuffles). Query or kv tiles are staged
-// in shared memory as f32. Tiles with no valid pair are skipped. A
-// tensor-core (wgmma) version is later work.
+// What bounds it: operations. Counted as 10 hd a unmasked (query, key)
+// pair (S, dP, dV, dK, dQ) at the bf16 tensor-core peak, 989 TFLOP/s:
+// at SmolLM-360M's training shape (B 2, H 15 over 5, hd 64, S 2048,
+// causal; 6.29e7 pairs) 0.041 ms.
+//
+// The bf16 kernels (dkdv_tc_kernel, dq_tc_kernel; hd 64 and 128) run
+// all products on the tensor cores (wgmma, flash_wgmma.cuh) and issue
+// 20 hd operations a pair, not 10 hd: 12 hd in dkdv (S^T, dP^T, then dV
+// and dK in two terms each; 16 hd at hd 128, below) and 8 hd in dq (S
+// and dP again, dQ in two terms). S and dP take bf16 operands exactly
+// (f32 accumulation), but P and dS rounded once to bf16 miss the
+// backward's rule (2 bf16 ulps of the plain f32 backward, ulp floored at
+// 2^-12 of the largest gradient) at ~7% of the elements of each gradient
+// at S 2048; split into two bf16 terms (hi + the rounded remainder) they
+// match unsplit f32 within it (tests/test_torch_flash_attention_bwd.py
+// emulates it). So each of dV += P^T.dO, dK += dS^T.Q and dQ += dS.K is
+// two wgmmas.
+//
+// The tensor cores' adds truncate: a dK chain over every tile drifted
+// past the rule at the mesh shape, a chain over one tile stays within
+// it. Each tile's product goes to a fresh accumulator that is added to
+// the running sum in f32 on the CUDA cores.
+//
+// What that design does:
+// - Blocks of three warpgroups: a producer warpgroup (setmaxnreg 24),
+//   one of whose threads loads the block's fixed tiles once and then a
+//   ring of 3 stages by TMA (4D maps over (hd, heads, S, B): ragged
+//   tiles read zeros past S, never the next batch) and 1D bulk copies
+//   (lse, dsum), behind "full" and "empty" mbarriers; two consumer
+//   warpgroups (setmaxnreg 240).
+// - dkdv_tc_kernel, one block per (64 keys, kv head, batch), the blocks
+//   that see the most query rows launched first: K and V stay in shared
+//   memory; each stage holds 64 query rows of Q and dO and their lse and
+//   dsum. S^T = K.Q^T and dP^T = V.dO^T by wgmma from shared memory put
+//   P^T and dS^T in the accumulator layout with rows = keys, so they are
+//   the register A operand of dV += P^T.dO and dK += dS^T.Q (dO and Q
+//   read MN-major). At hd 64 the two consumers take alternate stages,
+//   each with all of dK and dV in registers, and the second's sums are
+//   added to the first's through shared memory at the end (a fixed
+//   order): the heaviest block's chain of (head, query tile) steps is
+//   split in two. At hd 128 both take every stage with half the columns
+//   of dK and dV each (both compute S^T and dP^T), so that dK, dV and a
+//   partial fit in registers.
+// - dq_tc_kernel, one block per (128 query rows, head, batch), 64 a
+//   consumer, the blocks that see the most keys launched first: Q and dO
+//   stay; each stage holds 64 keys of K and V.
+//   S = Q.K^T, dP = dO.V^T, dS = P * (dP - dsum) in registers,
+//   dQ += dS.K (K read MN-major).
+// - The mask only on tiles where some pair is invalid (rows past Sq
+//   included); elsewhere p needs no select.
+//
+// The f32 kernels (dkdv_kernel, dq_kernel; also bf16 at hd 32) run on
+// the CUDA cores in f32: four threads share a key row (dkdv) or a query
+// row (dq), each holding an interleaved quarter of hd in registers;
+// dot products are the sum of the four quarters (two xor shuffles);
+// query or kv tiles are staged in shared memory as f32.
 // Build without --use_fast_math (expf).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -400,6 +450,486 @@ int dispatch(int hd, const void* q, const void* k, const void* v,
   }
 }
 
+// -- the tensor-core kernels: bf16 at hd 64 and 128 ----------------------
+
+constexpr int kTcThreads = 384;   // producer + two consumer warpgroups
+constexpr int kTcRows = 128;      // query rows a block (dq)
+constexpr int kTcStep = 64;       // query rows (dkdv) or keys (dq) a stage
+constexpr int kTcStages = 3;
+
+// dkdv: a block has 64 keys. At hd 64 its two consumer warpgroups take
+// alternate query tiles, each with all columns of dK and dV, and add
+// their sums at the end; at hd 128 both take every tile, each with half
+// the columns (both compute S^T and dP^T), so that dK, dV and a partial
+// fit in registers. dq: 128 query rows a block, 64 and all columns a
+// consumer.
+template <int HD>
+struct BwdTc {
+  static constexpr int kTile = fa_tc::kTileRows * HD * 2;   // 64 rows
+  static constexpr bool kAlternate = HD == 64;              // dkdv
+  static constexpr int kCols = kAlternate ? HD : HD / 2;    // dkdv
+  // 4 fixed tiles at most (dq: 2 x 64 rows of Q and of dO), stages of 2
+  // tiles, the stages' lse and dsum (dkdv), the barriers
+  static constexpr int kSmem = 1024 + 4 * kTile + kTcStages * 2 * kTile +
+                               kTcStages * 512 + 8 * (1 + 2 * kTcStages);
+};
+
+// 1. dsum and lse, each into a (B, H, Sqp) f32 buffer, zeros past Sq;
+// one warp a row
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+prep_tc_kernel(const __nv_bfloat16* __restrict__ o,
+               const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, float* __restrict__ dsum_p,
+               float* __restrict__ lse_p, int B, int Sq, int Sqp, int H) {
+  const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp >= B * H * Sqp) return;     // whole warps leave together
+  const int i = warp % Sqp, bh = warp / Sqp;
+  const int h = bh % H, b = bh / H;
+  float acc = 0.f;
+  if (i < Sq) {
+    const size_t off = ((static_cast<size_t>(b) * Sq + i) * H + h) * HD;
+    for (int dd = lane * 4; dd < HD; dd += 128)
+      acc = dot4(load4(dout + off + dd), load4(o + off + dd), acc);
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (lane == 0) {
+    dsum_p[warp] = acc;
+    lse_p[warp] = i < Sq ? lse[static_cast<size_t>(bh) * Sq + i] : 0.f;
+  }
+}
+
+// 2. dK, dV for 64 keys of one kv head
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ lse_p,
+               const float* __restrict__ dsum_p,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               int Sq, int Sqp, int Sk, int H, int K, int causal, int window,
+               int q_offset, int kv_len, float scale) {
+  using namespace fa_tc;
+  using L = BwdTc<HD>;
+  constexpr int NC = L::kCols;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sk = align_1024(smem_raw);        // the block's 64 keys
+  uint8_t* sv = sk + L::kTile;
+  uint8_t* sst = sv + L::kTile;              // stage s: Q tile, dO tile
+  float* sstat = reinterpret_cast<float*>(sst + kTcStages * 2 * L::kTile);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sstat + kTcStages * 128);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kTcStages;
+
+  // the grid's slowest dimension walks the key blocks from the first:
+  // under a causal mask the blocks that see the most query rows start
+  // first
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = H / K;
+  const int k_first = blockIdx.z * kTcStep;
+  const int kv_end = min(kv_len, Sk);
+  // query rows that see one of this block's valid keys
+  const int key_hi = min(k_first + kTcStep, kv_end) - 1;
+  int i_begin = 0, i_end = key_hi >= k_first ? Sq : 0;
+  if (causal) i_begin = max(i_begin, k_first - q_offset);
+  if (window > 0) i_end = min(i_end, key_hi + window - q_offset);
+  const int t_begin = i_begin / kTcStep;
+  const int t_end = i_end > i_begin ? (i_end + kTcStep - 1) / kTcStep : 0;
+  const int n_tiles = max(t_end - t_begin, 0);
+  const int n_iter = G * n_tiles;    // (head, query tile) pairs, in order
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], L::kAlternate ? 128 : 256);   // its consumers
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 2 * L::kTile);
+      tma_load_tile<HD>(sk, &tk, kv_full, kh, k_first, b);
+      tma_load_tile<HD>(sv, &tv, kv_full, kh, k_first, b);
+      for (int n = 0; n < n_iter; ++n) {
+        const int stage = n % kTcStages;
+        mbar_wait(&empty[stage], ((n / kTcStages) & 1) ^ 1);
+        const int h = kh * G + n / n_tiles;
+        const int t = t_begin + n % n_tiles;
+        uint8_t* qs = sst + stage * 2 * L::kTile;
+        float* st = sstat + stage * 128;
+        const size_t stat = (static_cast<size_t>(b) * H + h) * Sqp +
+                            t * kTcStep;
+        mbar_expect_tx(&full[stage], 2 * L::kTile + 512);
+        tma_load_tile<HD>(qs, &tq, &full[stage], h, t * kTcStep, b);
+        tma_load_tile<HD>(qs + L::kTile, &tdo, &full[stage], h, t * kTcStep,
+                          b);
+        bulk_load(st, lse_p + stat, 256, &full[stage]);
+        bulk_load(st + 64, dsum_p + stat, 256, &full[stage]);
+      }
+    }
+  } else {
+    regs_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int cw = wg - 1;
+    const int half = L::kAlternate ? 0 : cw;        // column block
+    const int ka = k_first + frag_row(0, tid);   // keys ka, ka + 8
+    const int cols = half * (NC / 64) * kBoxBytes;  // this block's columns
+    float dk_acc[NC / 2], dv_acc[NC / 2];
+#pragma unroll
+    for (int i = 0; i < NC / 2; ++i) {
+      dk_acc[i] = 0.f;
+      dv_acc[i] = 0.f;
+    }
+    mbar_wait(kv_full, 0);
+    for (int n = L::kAlternate ? cw : 0; n < n_iter;
+         n += L::kAlternate ? 2 : 1) {
+      const int stage = n % kTcStages;
+      const int i0 = (t_begin + n % n_tiles) * kTcStep;
+      mbar_wait(&full[stage], (n / kTcStages) & 1);
+      const uint8_t* qs = sst + stage * 2 * L::kTile;
+      const uint8_t* dos = qs + L::kTile;
+      const float* st = sstat + stage * 128;
+      float sT[32], dpT[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sT[i] = 0.f;
+        dpT[i] = 0.f;
+      }
+      wg_fence();
+      gemm_ss<HD>(sT, sk, qs);      // S^T = K.Q^T: rows keys, cols queries
+      gemm_ss<HD>(dpT, sv, dos);    // dP^T = V.dO^T
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sT);
+      fence_regs(dpT);
+
+      const bool all_valid = tile_all_valid(i0, k_first, Sq, kv_end, causal,
+                                            window, q_offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = frag_col(i, tid);
+        bool ok = true;
+        if (!all_valid) {
+          const int key = ka + 8 * ((i >> 1) & 1);
+          ok = i0 + c < Sq &&
+               pair_ok(key, q_offset + i0 + c, Sk, kv_len, causal, window);
+        }
+        const float p = ok ? expf(sT[i] * scale - st[c]) : 0.f;
+        sT[i] = p;
+        dpT[i] = p * (dpT[i] - st[64 + c]);
+      }
+      // this tile's dV part P^T.dO, then its dK part dS^T.Q, each in two
+      // bf16 terms into a fresh accumulator (the tensor cores' adds
+      // truncate: a chain over every tile drifts past the rule), added to
+      // dV, dK in f32 on the CUDA cores
+      float part[NC / 2];
+      uint32_t f[4][2][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) to_frag<2>(sT, kk, f[kk]);
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) part[i] = 0.f;
+      wg_fence();
+      fence_regs(part);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          wgmma_rs<NC>(part, f[kk][u], desc_mn(dos + cols, kk), 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) dv_acc[i] += part[i];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) to_frag<2>(dpT, kk, f[kk]);
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) part[i] = 0.f;
+      wg_fence();
+      fence_regs(part);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          wgmma_rs<NC>(part, f[kk][u], desc_mn(qs + cols, kk), 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(part);
+      mbar_arrive(&empty[stage]);
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) dk_acc[i] += part[i];
+    }
+
+    if (L::kAlternate) {
+      // the second consumer's sums to the first through the (consumed)
+      // stage buffers, added in a fixed order
+      float* red = reinterpret_cast<float*>(sst);
+      named_sync(1, 256);
+      if (cw == 1) {
+#pragma unroll
+        for (int i = 0; i < NC / 2; ++i) {
+          red[i * 128 + tid] = dk_acc[i];
+          red[(NC / 2 + i) * 128 + tid] = dv_acc[i];
+        }
+      }
+      named_sync(1, 256);
+      if (cw == 1) return;
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) {
+        dk_acc[i] += red[i * 128 + tid];
+        dv_acc[i] += red[(NC / 2 + i) * 128 + tid];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = ka + 8 * r;
+      if (key >= Sk) continue;
+      const size_t off =
+          ((static_cast<size_t>(b) * Sk + key) * K + kh) * HD + half * NC;
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int col = 8 * j + 2 * (tid & 3);
+        *reinterpret_cast<uint32_t*>(dk + off + col) =
+            pack_bf16(dk_acc[4 * j + 2 * r] * scale,
+                      dk_acc[4 * j + 2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off + col) =
+            pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// 3. dQ for 128 query rows of one head
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tdo,
+             const float* __restrict__ lse_p,
+             const float* __restrict__ dsum_p, __nv_bfloat16* __restrict__ dq,
+             int Sq, int Sqp, int Sk, int H, int K, int causal, int window,
+             int q_offset, int kv_len, float scale) {
+  using namespace fa_tc;
+  using L = BwdTc<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sq = align_1024(smem_raw);     // 2 tiles: rows 0-63, 64-127
+  uint8_t* sdo = sq + 2 * L::kTile;       // 2 tiles
+  uint8_t* sst = sdo + 2 * L::kTile;      // stage s: K tile, V tile
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      sst + kTcStages * 2 * L::kTile + kTcStages * 512);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kTcStages;
+
+  // the query blocks from the last: under a causal mask the blocks that
+  // see the most keys start first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kh = h / (H / K);
+  const int q_first = (gridDim.z - 1 - blockIdx.z) * kTcRows;
+  const int kv_end = min(kv_len, Sk);
+  int t_begin, t_end;
+  kv_tiles(q_first, kTcRows, Sq, q_offset, kv_end, causal, window, &t_begin,
+           &t_end);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 0) {
+    regs_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 4 * L::kTile);
+      for (int r = 0; r < 2; ++r) {
+        tma_load_tile<HD>(sq + r * L::kTile, &tq, q_full, h,
+                          q_first + 64 * r, b);
+        tma_load_tile<HD>(sdo + r * L::kTile, &tdo, q_full, h,
+                          q_first + 64 * r, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        uint8_t* ks = sst + stage * 2 * L::kTile;
+        mbar_expect_tx(&full[stage], 2 * L::kTile);
+        tma_load_tile<HD>(ks, &tk, &full[stage], kh, t * kTcStep, b);
+        tma_load_tile<HD>(ks + L::kTile, &tv, &full[stage], kh,
+                          t * kTcStep, b);
+        if (++stage == kTcStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    regs_inc<240>();
+    const int tid = threadIdx.x & 127;
+    const int row0 = q_first + 64 * (wg - 1);
+    const int ra = row0 + frag_row(0, tid);   // this thread's rows ra, ra + 8
+    const uint8_t* qt = sq + (wg - 1) * L::kTile;
+    const uint8_t* dot = sdo + (wg - 1) * L::kTile;
+    float row_lse[2], row_dsum[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t stat = (static_cast<size_t>(b) * H + h) * Sqp + ra + 8 * r;
+      row_lse[r] = ra + 8 * r < Sq ? lse_p[stat] : 0.f;
+      row_dsum[r] = ra + 8 * r < Sq ? dsum_p[stat] : 0.f;
+    }
+    float dq_acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
+    mbar_wait(q_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      const int k0 = t * kTcStep;
+      mbar_wait(&full[stage], phase);
+      const uint8_t* ks = sst + stage * 2 * L::kTile;
+      const uint8_t* vs = ks + L::kTile;
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = 0.f;
+        dp[i] = 0.f;
+      }
+      wg_fence();
+      gemm_ss<HD>(s, qt, ks);      // S = Q.K^T
+      gemm_ss<HD>(dp, dot, vs);    // dP = dO.V^T
+      wg_commit();
+      wg_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+
+      const bool all_valid = tile_all_valid(row0, k0, Sq, kv_end, causal,
+                                            window, q_offset);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        bool ok = true;
+        if (!all_valid) {
+          const int row = ra + 8 * r;
+          ok = row < Sq && pair_ok(k0 + frag_col(i, tid), q_offset + row, Sk,
+                                   kv_len, causal, window);
+        }
+        const float p = ok ? expf(s[i] * scale - row_lse[r]) : 0.f;
+        dp[i] = p * (dp[i] - row_dsum[r]);
+      }
+      // this tile's dS.K in two bf16 terms into a fresh accumulator,
+      // added to dQ in f32 (as in dkdv)
+      uint32_t df[4][2][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) to_frag<2>(dp, kk, df[kk]);
+      float part[HD / 2];
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) part[i] = 0.f;
+      wg_fence();
+      fence_regs(part);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+          wgmma_rs<HD>(part, df[kk][u], desc_mn(ks, kk), 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(part);
+      mbar_arrive(&empty[stage]);
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) dq_acc[i] += part[i];
+      if (++stage == kTcStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = ra + 8 * r;
+      if (row >= Sq) continue;
+      __nv_bfloat16* drow =
+          dq + ((static_cast<size_t>(b) * Sq + row) * H + h) * HD;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(drow + 8 * j + 2 * (tid & 3)) =
+            pack_bf16(dq_acc[4 * j + 2 * r] * scale,
+                      dq_acc[4 * j + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
+template <int HD>
+int launch_tc(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, void* scratch, void* dq,
+              void* dk, void* dv, int B, int Sq, int Sk, int H, int K,
+              int causal, int window, int q_offset, int kv_len, float scale,
+              cudaStream_t s) {
+  using L = BwdTc<HD>;
+  const int Sqp = (Sq + kTcStep - 1) / kTcStep * kTcStep;
+  float* dsum_p = static_cast<float*>(scratch);
+  float* lse_p = dsum_p + static_cast<size_t>(B) * H * Sqp;
+  CUtensorMap tq, tk, tv, tdo;
+  int e = fa_tc::make_map(&tq, q, HD, H, Sq, B);
+  if (e == 0) e = fa_tc::make_map(&tk, k, HD, K, Sk, B);
+  if (e == 0) e = fa_tc::make_map(&tv, v, HD, K, Sk, B);
+  if (e == 0) e = fa_tc::make_map(&tdo, dout, HD, H, Sq, B);
+  if (e != 0) return e;
+  // opt in to the dynamic shared memory once, before the first launch
+  // (outside any CUDA-graph capture that follows it)
+  static bool opted = false;
+  if (!opted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        dkdv_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::kSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          dq_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          L::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
+  const long long rows = static_cast<long long>(B) * H * Sqp;
+  const unsigned prep_blocks =
+      static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
+  prep_tc_kernel<HD><<<prep_blocks, kThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), dsum_p, lse_p, B, Sq, Sqp, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 kv_grid(K, B, (Sk + kTcStep - 1) / kTcStep);
+  dkdv_tc_kernel<HD><<<kv_grid, kTcThreads, L::kSmem, s>>>(
+      tq, tk, tv, tdo, lse_p, dsum_p, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), Sq, Sqp, Sk, H, K, causal, window,
+      q_offset, kv_len, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 q_grid(H, B, (Sq + kTcRows - 1) / kTcRows);
+  dq_tc_kernel<HD><<<q_grid, kTcThreads, L::kSmem, s>>>(
+      tq, tk, tv, tdo, lse_p, dsum_p, static_cast<__nv_bfloat16*>(dq), Sq,
+      Sqp, Sk, H, K, causal, window, q_offset, kv_len, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Head dims the backward is built for (the switch above); the wrapper
@@ -425,4 +955,35 @@ extern "C" int fa_flash_attention_bwd(
   return dispatch<float>(hd, q, k, v, o, dout, lse, dsum, dq, dk, dv, B, Sq,
                          Sk, H, K, causal, window, q_offset, kv_len, scale,
                          s);
+}
+
+// Head dims the tensor-core backward is built for (bf16 only); the
+// wrapper routes other bf16 head dims and f32 to fa_flash_attention_bwd.
+extern "C" int fa_bwd_tc_supports_head_dim(int hd) {
+  return hd == 64 || hd == 128;
+}
+
+// The bf16 tensor-core backward: q, k, v, o, dout and the outputs dq,
+// dk, dv bf16 with 16-byte aligned bases; lse (B, H, Sq) f32; scratch
+// (2, B, H, Sqp) f32 with Sqp = 64 ceil(Sq / 64), 16-byte aligned. Three
+// launches on `stream`; returns the first non-zero error (tensor map,
+// shared-memory opt-in, cudaGetLastError()), else 0.
+extern "C" int fa_flash_attention_bwd_tc(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* scratch, void* dq, void* dk,
+    void* dv, int B, int Sq, int Sk, int H, int K, int hd, int causal,
+    int window, int q_offset, int kv_len, float scale, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 64:
+      return launch_tc<64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq,
+                           Sk, H, K, causal, window, q_offset, kv_len, scale,
+                           s);
+    case 128:
+      return launch_tc<128>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
+                            Sq, Sk, H, K, causal, window, q_offset, kv_len,
+                            scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -8,6 +8,13 @@ gradient, csrc/flash_attention_bwd.cu (or raises). The kernels take
 ragged lengths and index kv head h // (H // K), so there is no padding
 and no repeat of k and v.
 
+On the card the route is chosen by dtype and head dim alone, before the
+launch: bf16 at a head dim the tensor-core kernels are built for (64,
+128, 256 forward; 64, 128 backward) launches them and counts as
+`flash_attention` / `flash_attention_bwd`; f32, and bf16 at another
+head dim, launches the CUDA-core kernels and counts as
+`flash_attention_f32` / `flash_attention_bwd_f32`.
+
 `flash_attention` is differentiable: when a gradient is wanted it runs
 as an autograd Function whose forward also keeps each row's
 log-sum-exp, and whose backward is the backward kernel (the plain
@@ -39,6 +46,11 @@ def _lib() -> ctypes.CDLL:
         lib.fa_flash_attention.restype = _I
         lib.fa_supports_head_dim.argtypes = [_I]
         lib.fa_supports_head_dim.restype = _I
+        lib.fa_flash_attention_tc.argtypes = [_P] * 5 + [_I] * 10 + [
+            ctypes.c_float, _P]
+        lib.fa_flash_attention_tc.restype = _I
+        lib.fa_tc_supports_head_dim.argtypes = [_I]
+        lib.fa_tc_supports_head_dim.restype = _I
     return lib
 
 
@@ -50,6 +62,11 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.fa_flash_attention_bwd.restype = _I
         lib.fa_bwd_supports_head_dim.argtypes = [_I]
         lib.fa_bwd_supports_head_dim.restype = _I
+        lib.fa_flash_attention_bwd_tc.argtypes = [_P] * 10 + [_I] * 10 + [
+            ctypes.c_float, _P]
+        lib.fa_flash_attention_bwd_tc.restype = _I
+        lib.fa_bwd_tc_supports_head_dim.argtypes = [_I]
+        lib.fa_bwd_tc_supports_head_dim.restype = _I
     return lib
 
 
@@ -70,11 +87,17 @@ def _require_cuda(q, what):
         raise ValueError(f"{what}: dtype {q.dtype} not f32/bf16")
 
 
-def _check(dev, dtype, named: dict) -> None:
+def _check(dev, dtype, named: dict, tma: bool = False) -> None:
+    """Device, dtype, shape, contiguity and a 16-byte aligned base; for
+    the tensor-core kernels (`tma`) also the byte strides of the
+    (B, S, heads, hd) layout, which TMA needs in multiples of 16."""
     for name, (t, shape) in named.items():
         runtime.require(t, dtype, shape, f"flash_attention {name}", dev)
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention {name}: not 16-byte aligned")
+        if tma and any(st * t.element_size() % 16 for st in t.stride()[:3]):
+            raise ValueError(f"flash_attention {name}: strides "
+                             f"{t.stride()} not multiples of 16 bytes")
 
 
 def _forward(q, k, v, causal, window, q_offset, kv_len, want_lse: bool):
@@ -89,21 +112,25 @@ def _forward(q, k, v, causal, window, q_offset, kv_len, want_lse: bool):
     lib = _lib()
     if not lib.fa_supports_head_dim(hd):
         raise ValueError(f"flash_attention: no kernel for head_dim {hd}")
+    tc = q.dtype == torch.bfloat16 and bool(lib.fa_tc_supports_head_dim(hd))
     _check(q.device, q.dtype, {"q": (q, (B, Sq, H, hd)),
                                "k": (k, (B, Sk, K, hd)),
-                               "v": (v, (B, Sk, K, hd))})
+                               "v": (v, (B, Sk, K, hd))}, tma=tc)
     out = torch.empty_like(q)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
     if B * Sq * H == 0:
         return out, lse
-    err = lib.fa_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, Sq, Sk, H, K, hd,
-        _DTYPES[q.dtype], int(causal), int(window), q_offset, kv_len,
-        1.0 / math.sqrt(hd), runtime.stream_ptr(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Sk, H, K, hd)
+    masks = (int(causal), int(window), q_offset, kv_len,
+             1.0 / math.sqrt(hd), runtime.stream_ptr(q))
+    if tc:
+        err = lib.fa_flash_attention_tc(*args, *masks)
+    else:
+        err = lib.fa_flash_attention(*args, _DTYPES[q.dtype], *masks)
     runtime.check(err, "flash_attention")
-    runtime.note_launch("flash_attention")
+    runtime.note_launch("flash_attention" if tc else "flash_attention_f32")
     return out, lse
 
 
@@ -133,25 +160,36 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require_cuda(q, "flash_attention backward")
     require_bwd_head_dim(hd)
     dev = q.device
+    lib = _bwd_lib()
+    tc = q.dtype == torch.bfloat16 and bool(
+        lib.fa_bwd_tc_supports_head_dim(hd))
     _check(dev, q.dtype, {"q": (q, (B, Sq, H, hd)), "k": (k, (B, Sk, K, hd)),
                           "v": (v, (B, Sk, K, hd)),
                           "out": (out, (B, Sq, H, hd)),
-                          "dout": (dout, (B, Sq, H, hd))})
+                          "dout": (dout, (B, Sq, H, hd))}, tma=tc)
     runtime.require(lse, torch.float32, (B, H, Sq), "flash_attention lse",
                     dev)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
     if B * Sq * H == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    err = _bwd_lib().fa_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, hd, _DTYPES[q.dtype],
-        int(causal), int(window), q_offset, kv_len, 1.0 / math.sqrt(hd),
-        runtime.stream_ptr(q))
+    # scratch: dsum (B, H, Sq); the tensor-core kernels take dsum and a
+    # copy of lse, each zero-padded to a multiple of 64 rows
+    rows = -(-Sq // 64) * 64 if tc else Sq
+    scratch = torch.empty(((2 if tc else 1), B, H, rows),
+                          dtype=torch.float32, device=dev)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, hd)
+    masks = (int(causal), int(window), q_offset, kv_len,
+             1.0 / math.sqrt(hd), runtime.stream_ptr(q))
+    if tc:
+        err = lib.fa_flash_attention_bwd_tc(*args, *masks)
+    else:
+        err = lib.fa_flash_attention_bwd(*args, _DTYPES[q.dtype], *masks)
     runtime.check(err, "flash_attention backward")
-    runtime.note_launch("flash_attention_bwd")
+    runtime.note_launch("flash_attention_bwd" if tc
+                        else "flash_attention_bwd_f32")
     return dq, dk, dv
 
 

@@ -12,10 +12,11 @@ Build: each `csrc/*.cu` source compiles on first use with
          -Xcompiler -fPIC -o build/repro_torch/<name>-<hash>.so <name>.cu
 
 into `build/repro_torch/` at the repository root, cached by a hash of
-the source and the flags. `build_all()` starts one nvcc per source at
-once. The libraries have a plain C interface (pointers and the stream as
-`void*`, each function returns `cudaGetLastError()`), loaded with
-`ctypes` — no PyTorch headers, so a build takes seconds.
+the source, every shared header (`csrc/*.cuh`) and the flags.
+`build_all()` starts one nvcc per source at once. The libraries have a
+plain C interface (pointers and the stream as `void*`, each function
+returns `cudaGetLastError()`), loaded with `ctypes` — no PyTorch
+headers, so a build takes seconds.
 """
 from __future__ import annotations
 
@@ -79,9 +80,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library's path, named by a hash of its source, of every
+    header a source may include and of the flags: a changed header
+    builds anew rather than reusing a stale library."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start_build(name: str) -> Optional[tuple[subprocess.Popen, Path, Path]]:

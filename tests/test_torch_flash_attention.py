@@ -143,3 +143,108 @@ def test_gradient_raises(monkeypatch):
     km = torch.zeros((1, 4, 1, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ops.flash_attention(qm, km, km)
+
+
+# -- the tensor-core kernel's arithmetic, emulated in plain PyTorch ------
+#
+# csrc/flash_attention.cu's bf16 kernel computes S = Q.K^T from bf16 q, k
+# in f32, the online max and sum in f32 per kv tile of 64 keys, and each
+# tile's P.V with P split into bf16 terms (each the rounded remainder of
+# the ones before) into a fresh f32 accumulator, added as
+# O = O * alpha + P.V. The card's check (chip_smoke.py) holds its output
+# to the plain one within 2 bf16 ulps, the ulp floored at 2^-16 of the
+# largest output. These tests hold the same arithmetic, with exact f32
+# adds, to that rule: three terms pass, one term does not.
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def _misses(got, want, floor_exp):
+    """Elements of `got` more than 2 bf16 ulps from `want`, the ulp taken
+    at no less than 2^floor_exp of the largest |want| (chip_smoke.py's
+    rule)."""
+    want = want.float()
+    floor = torch.full_like(want, 2.0 ** floor_exp * float(want.abs().max()))
+    tol = 2 * _bf16_ulp(torch.maximum(want.abs(), floor))
+    return int(((got.float() - want).abs() > tol).sum())
+
+
+def _split_terms(x, terms):
+    """x (f32) as `terms` bf16 values (in f32) that sum to x within
+    2^-8 terms relative: each the bf16 rounding of what the ones before
+    it left."""
+    out = []
+    for _ in range(terms):
+        t = x.to(torch.bfloat16).float()
+        out.append(t)
+        x = x - t
+    return out
+
+
+def _emulate_tc_forward(q, k, v, *, causal, window, q_offset, terms,
+                        tile=64):
+    Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[3]
+    qf, kf, vf = ref._heads_f32(q, k, v)
+    mask = ref.attention_mask(Sq, Sk, causal=causal, window=window,
+                              q_offset=q_offset, kv_len=Sk, device="cpu")
+    scale = 1.0 / np.sqrt(hd)
+    m = torch.full(qf.shape[:3] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    o = torch.zeros_like(qf)
+    for k0 in range(0, Sk, tile):
+        ok = mask[:, k0:k0 + tile]
+        s = (qf @ kf[..., k0:k0 + tile, :].transpose(-1, -2)) * scale
+        s = torch.where(ok, s, torch.tensor(-1e30))
+        mx = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - mx)
+        p = torch.where(ok, torch.exp(s - mx), torch.tensor(0.0))
+        l = alpha * l + p.sum(-1, keepdim=True)
+        pv = sum(t @ vf[..., k0:k0 + tile, :] for t in _split_terms(p, terms))
+        o = o * alpha + pv
+        m = mx
+    out = o / l.clamp_min(1e-30)
+    return out.transpose(1, 2).contiguous().to(q.dtype)
+
+
+# (B, Sq, Sk, H, K, hd, causal, window): hd 64 and 256, causal and
+# windowed (RecurrentGemma's hd with a window), suffix-aligned GQA
+TC_CASES = [
+    (1, 1024, 1024, 2, 1, 64, True, 0),
+    (1, 1024, 1024, 2, 1, 256, True, 512),
+    (1, 512, 1024, 4, 2, 256, True, 0),
+    (1, 768, 768, 3, 3, 64, True, 100),
+]
+
+
+def _bf16_qkv(seed, B, Sq, Sk, H, K, hd):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(torch.bfloat16)
+            for s in ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd))]
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_tensor_core_forward_arithmetic_within_rule(case):
+    """P in three bf16 terms, per-tile f32 partials: every output within
+    2 bf16 ulps of the plain forward."""
+    B, Sq, Sk, H, K, hd, causal, window = case
+    q, k, v = _bf16_qkv(sum(case[:6]), B, Sq, Sk, H, K, hd)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=Sk - Sq)
+    got = _emulate_tc_forward(q, k, v, causal=causal, window=window,
+                              q_offset=Sk - Sq, terms=3)
+    assert _misses(got, want, -16) == 0
+
+
+def test_one_bf16_term_of_p_fails_the_rule():
+    """P rounded once to bf16 (one wgmma for P.V) misses the rule: why the
+    kernel splits it."""
+    B, Sq, Sk, H, K, hd, causal, window = TC_CASES[0]
+    q, k, v = _bf16_qkv(sum(TC_CASES[0][:6]), B, Sq, Sk, H, K, hd)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=0)
+    got = _emulate_tc_forward(q, k, v, causal=causal, window=window,
+                              q_offset=0, terms=1)
+    assert _misses(got, want, -16) > 1000

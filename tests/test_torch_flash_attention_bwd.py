@@ -131,3 +131,108 @@ def test_unsupported_backward_head_dim_raises(monkeypatch):
     for hd in (128, 256):
         with pytest.raises(ValueError, match=f"head_dim {hd}"):
             ops.flash_attention_bwd(*args(hd))
+
+
+# -- the tensor-core kernels' arithmetic, emulated in plain PyTorch ------
+#
+# csrc/flash_attention_bwd.cu's bf16 kernels compute S and dP from bf16
+# operands in f32, P = exp(S * scale - lse) and dS = P * (dP - dsum) in
+# f32, and each of dV += P^T.dO, dK += dS^T.Q, dQ += dS.K per tile of 64
+# rows with P or dS split into bf16 terms (each the rounded remainder of
+# the ones before) into a fresh f32 accumulator, added to the sum in
+# f32. The card's check (chip_smoke.py) holds the gradients to the plain
+# backward within 2 bf16 ulps, the ulp floored at 2^-12 of the largest
+# gradient. These tests hold the same arithmetic, with exact f32 adds,
+# to that rule: two terms pass, one does not.
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def _misses(got, want, floor_exp=-12):
+    """Elements more than 2 bf16 ulps from `want`, the ulp taken at no
+    less than 2^floor_exp of the largest |want| (chip_smoke.py's rule)."""
+    want = want.float()
+    floor = torch.full_like(want, 2.0 ** floor_exp * float(want.abs().max()))
+    tol = 2 * _bf16_ulp(torch.maximum(want.abs(), floor))
+    return int(((got.float() - want).abs() > tol).sum())
+
+
+def _split_product(a, b, terms, tile=64):
+    """a @ b with a (f32) split into `terms` bf16 terms, one fresh f32
+    partial per tile of 64 along the reduction, the partials summed in
+    f32: the kernels' second products."""
+    acc = 0.0
+    for c0 in range(0, a.shape[-1], tile):
+        rest, part = a[..., c0:c0 + tile], 0.0
+        for _ in range(terms):
+            t = rest.to(torch.bfloat16).float()
+            part = part + t @ b[..., c0:c0 + tile, :]
+            rest = rest - t
+        acc = acc + part
+    return acc
+
+
+def _emulate_tc_backward(q, k, v, out, do, lse, *, causal, window,
+                         q_offset, terms):
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    scale = 1.0 / np.sqrt(hd)
+    qf, kf, vf = ref._heads_f32(q, k, v)
+    dof = do.float().transpose(1, 2)
+    dsum = (dof * out.float().transpose(1, 2)).sum(-1, keepdim=True)
+    mask = ref.attention_mask(Sq, Sk, causal=causal, window=window,
+                              q_offset=q_offset, kv_len=Sk, device="cpu")
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.tensor(0.0))
+    ds = p * (dof @ vf.transpose(-1, -2) - dsum)
+    dv = _split_product(p.transpose(-1, -2), dof, terms)
+    dk = _split_product(ds.transpose(-1, -2), qf, terms) * scale
+    dq = _split_product(ds, kf, terms) * scale
+
+    def per_kv_head(x):
+        return x.reshape(B, K, H // K, Sk, hd).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), per_kv_head(dk).to(q.dtype),
+            per_kv_head(dv).to(q.dtype))
+
+
+# (B, Sq, Sk, H, K, hd, causal, window): hd 64 (SmolLM's) and 128, causal
+# and windowed, GQA
+TC_CASES = [
+    (1, 1024, 1024, 3, 1, 64, True, 0),
+    (1, 768, 768, 4, 2, 128, True, 200),
+]
+
+
+def _bf16_case(case):
+    B, Sq, Sk, H, K, hd, causal, window = case
+    rng = np.random.default_rng(sum(case[:6]))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(torch.bfloat16) for s in
+                   ((B, Sq, H, hd), (B, Sk, K, hd), (B, Sk, K, hd),
+                    (B, Sq, H, hd)))
+    kw = dict(causal=causal, window=window, q_offset=Sk - Sq)
+    out, lse = ref.attention_ref(q, k, v, return_lse=True, **kw)
+    return q, k, v, out, do, lse, kw
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_tensor_core_backward_arithmetic_within_rule(case):
+    """P and dS in two bf16 terms, per-tile f32 partials: every gradient
+    within 2 bf16 ulps of the plain backward."""
+    q, k, v, out, do, lse, kw = _bf16_case(case)
+    want = ref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    got = _emulate_tc_backward(q, k, v, out, do, lse, terms=2, **kw)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _misses(a, b) == 0
+
+
+def test_one_bf16_term_of_p_and_ds_fails_the_rule():
+    """P and dS rounded once to bf16 miss the rule in every gradient: why
+    the kernels split them."""
+    q, k, v, out, do, lse, kw = _bf16_case(TC_CASES[0])
+    want = ref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    got = _emulate_tc_backward(q, k, v, out, do, lse, terms=1, **kw)
+    assert all(_misses(a, b) > 100 for a, b in zip(got, want))
