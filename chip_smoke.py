@@ -12,7 +12,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      int8 and int4, at the main path's shapes (C = 50 workers, one
      (256, 128) block per CNN5 leaf; the downlink at C = 1) and at one
      large leaf (2^20 elements x C = 50), every wire_agg mode with partial
-     and all-lost masks; prints max errors and median CUDA-event times;
+     and all-lost masks; prints max errors and median CUDA-event times,
+     and keeps the large leaf's int4 quant_pack_ef time as a row of its
+     own (quant_pack runs each tile over a cluster of 8 CTAs);
   4. checks the engine on a small input: one round on the card against
      the same round on the CPU (plain versions), same data and draws;
   5. drives the main path: `repro_torch.experiments.run` on the
@@ -26,7 +28,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      shape (q_offset > 0, kv_len < Sk, fully masked rows) and in f32,
      each asserting its route (bf16: the tensor-core kernel, counted as
      flash_attention; f32: the CUDA-core kernel, flash_attention_f32);
-     rglru_scan at (4, 4096, 4096) f32; device, eager, plain and library
+     rglru_scan (the TMA-fed staged kernel) at (4, 4096, 4096) f32 and
+     at the ragged (3, 1000, 1000), (2, 1, 128) and (1, 4097, 4096),
+     states and final state; device, eager, plain and library
      (SDPA for flash) times and the bounds, and at the flash main shape
      the CUDA-core kernel the tensor-core one replaces (bf16, same
      inputs; it must be slower) and the f32 path;
@@ -65,9 +69,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      evaluations) = 224 times, its backward 32 x 2 = 64 times and
      pso_update once per leaf, 11 times, and the CUDA-core flash kernels
      (the _f32 counters) never; then profiles one more round;
- 12. prints the card line, the `kernels` JSON line (each flash row with
-     its cores, the CUDA-core kernel's and the f32 path's times; a row of
-     the forward at the mesh shape) and, last, the ok line.
+ 12. prints the card line, the `kernels` JSON line (each row with its
+     share of bound = bound_ms / ms; each flash row with its cores, the
+     CUDA-core kernel's and the f32 path's times; a row of the forward at
+     the mesh shape and one of quant_pack_ef at the large leaf) and, last,
+     the ok line.
 
 Tolerances: payloads, scales, decodes and the wire_agg median bitwise;
 the error-feedback residual within 1 ulp of |acc| (fmaf in the kernel,
@@ -75,7 +81,8 @@ one rounding from f64 in the plain version); wire_agg mean, sum and
 trimmed mean within 2^-21 * sum|terms| (both sum in the same order, so
 this is expected to be 0). flash_attention in bf16 within 2 bf16 ulps of
 the plain output (the ulp taken at no less than 2^-16 of the largest
-output), in f32 within 1e-5 of the largest output; rglru_scan bitwise;
+output), in f32 within 1e-5 of the largest output; rglru_scan bitwise,
+states and final state, at every scan shape;
 the small serve's logits within 5e-4 (as the CPU parity tests) and its
 greedy tokens equal. pso_update bitwise. The flash backward: in f32
 within 1e-5 of the largest |gradient| against both references; in bf16
@@ -169,7 +176,8 @@ def ulp(x):
 
 def kernel_checks(dev):
     """Phase 3. Returns {kernel: {max_abs_err, ms, plain_ms, bound_ms,
-    bound_by}} at the main path's shapes."""
+    bound_by}} at the main path's shapes, and the same for quant_pack_ef
+    at the large leaf (int4, C = 50, rows 8192)."""
     import torch
     from repro_torch.kernels.quant_pack import ops as qops
     from repro_torch.kernels.quant_pack import ref as qref
@@ -179,6 +187,7 @@ def kernel_checks(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     out = {k: {"max_abs_err": 0.0} for k in
            ("quant_pack_ef", "wire_agg", "quant_pack", "dequant_unpack")}
+    large = {}
 
     def err(name, got, want):
         e = float((got.float() - want.float()).abs().max())
@@ -205,10 +214,11 @@ def kernel_checks(dev):
             check(torch.equal(kp, pp), f"quant_pack_ef payload bits={bits} "
                                        f"{label}")
             check(torch.equal(ks, ps), f"quant_pack_ef scales bits={bits}")
-            err("quant_pack_ef", ks, ps)
-            e = err("quant_pack_ef", kr, pr)
+            e = max(err("quant_pack_ef", ks, ps), err("quant_pack_ef", kr, pr))
             check(bool(((kr - pr).abs() <= ulp(x + r)).all()),
                   f"quant_pack_ef residual > 1 ulp (max {e}) bits={bits}")
+            if label == "large" and bits == 4:
+                large["max_abs_err"] = e
             # quant_pack (downlink: C = 1 on the main path)
             for Cq in ((1, C) if label == "main" else (C,)):
                 xq, sq = x[:Cq].contiguous(), s[:Cq].contiguous()
@@ -292,10 +302,12 @@ def kernel_checks(dev):
                 # downlink at C = 1, one block per leaf
                 if label == "main" and bits == MAIN_BITS[name]:
                     out[name].update(t, bound_ms=bnd, bound_by=by)
+                if label == "large" and bits == 4 and name == "quant_pack_ef":
+                    large.update(t, bound_ms=bnd, bound_by=by)
     print("[check] max abs err vs plain (all shapes, both widths): " +
           ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in out.items()),
           flush=True)
-    return out
+    return out, large
 
 
 def small_round_check(dev):
@@ -413,7 +425,10 @@ FLASH_CASES = [
     ("ragged", 2, 300, 1000, 6, 2, 128, "bfloat16", True, 128, 700, 800),
     ("f32", 2, 777, 777, 4, 4, 64, "float32", True, 100, None, None),
 ]
-SCAN_SHAPE = (4, 4096, 4096)        # (B, S, d_model) of the main prefill
+# (B, S, D): the main prefill's shape first, then ragged ones (S not a
+# multiple of the stage rows, D not one of the channel tile; one step)
+SCAN_SHAPES = [(4, 4096, 4096), (3, 1000, 1000), (2, 1, 128),
+               (1, 4097, 4096)]
 F32_RTOL = 1e-5
 SERVE_LOGIT_TOL = 5e-4
 
@@ -590,20 +605,22 @@ def serve_kernel_checks(dev):
     del q, k, v, mask, errs
     torch.cuda.empty_cache()
 
-    # the scan, bitwise, at the main prefill's shape
-    B, S, D = SCAN_SHAPE
-    a = torch.rand((B, S, D), generator=g, device=dev) * 0.5 + 0.499
-    b = 0.1 * torch.randn((B, S, D), generator=g, device=dev)
-    h0 = torch.randn((B, D), generator=g, device=dev)
-    states, final = sops.rglru_scan(h0, a, b)
-    want = sref.rglru_scan_ref(h0, a, b)
-    torch.cuda.synchronize()
-    err = float((states - want).abs().max())
-    check(torch.equal(states, want) and torch.equal(final, want[:, -1]),
-          f"rglru_scan: not bitwise equal to the plain version (max abs "
-          f"err {err})")
-    print(f"[check] rglru_scan B={B} S={S} D={D} f32: bitwise equal to the "
-          f"plain version", flush=True)
+    # the scan, bitwise (states and final state), at every shape; the
+    # main prefill's shape last, for its times
+    for B, S, D in SCAN_SHAPES[::-1]:
+        a = torch.rand((B, S, D), generator=g, device=dev) * 0.5 + 0.499
+        b = 0.1 * torch.randn((B, S, D), generator=g, device=dev)
+        h0 = torch.randn((B, D), generator=g, device=dev)
+        states, final = sops.rglru_scan(h0, a, b)
+        want = sref.rglru_scan_ref(h0, a, b)
+        torch.cuda.synchronize()
+        err = float((states - want).abs().max())
+        check(torch.equal(states, want) and torch.equal(final, want[:, -1]),
+              f"rglru_scan ({B}, {S}, {D}): not bitwise equal to the plain "
+              f"version (max abs err {err})")
+        print(f"[check] rglru_scan B={B} S={S} D={D} f32 (plan "
+              f"{sops._plan(B, S, D)}): states and final state bitwise "
+              f"equal to the plain version", flush=True)
     nbytes = 12 * B * S * D + 8 * B * D
     bnd, by = bound_ms(nbytes, 2 * B * S * D)
     t = {"ms": graph_ms(lambda: sops.rglru_scan(h0, a, b), 10),
@@ -1268,7 +1285,7 @@ def main() -> None:
         else f"nvidia-smi failed: {smi.stderr.strip()}"
     print(card, flush=True)
 
-    stats = kernel_checks(dev)
+    stats, large_leaf = kernel_checks(dev)
     small_round_check(dev)
 
     spec = override(get_scenario("low-bandwidth-int4"),
@@ -1331,6 +1348,15 @@ def main() -> None:
                 "bound_by": s["bound_by"], "library_ms": None,
                 "eager_ms": s["eager_ms"], "check": "pass"}
                for name, s in stats.items()]
+    # quant_pack_ef at the large leaf (int4, C = 50, rows 8192): not a
+    # main-path shape; its launches are the kernel's on the main path
+    qpef = next(k for k in kernels if k["name"] == "quant_pack_ef")
+    kernels.append(dict(
+        qpef, name="quant_pack_ef (large leaf)",
+        shape="int4, C=50 x (8192, 128) f32; not on the main path",
+        **{key: large_leaf[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "eager_ms")}))
     replaces = {
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:97",
@@ -1381,6 +1407,8 @@ def main() -> None:
     next(k for k in kernels if k["name"] == "flash_attention_bwd")[
         "library_fwd_bwd_ms"] = \
         mesh_stats["flash_attention_bwd"]["library_fwd_bwd_ms"]
+    for k in kernels:
+        k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

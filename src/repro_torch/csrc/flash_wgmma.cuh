@@ -3,7 +3,10 @@
 // TMA tile loads behind mbarriers, wgmma (bf16 in, f32 accumulate) with
 // shared-memory descriptors in the 128-byte swizzle, and the fragment
 // arithmetic between one product's accumulator and the next product's
-// register A operand.
+// register A operand. The mbarrier, TMA, bulk-copy and named-barrier
+// primitives and the host's cuTensorMapEncodeTiled lookup live in
+// tma.cuh (shared with the RG-LRU scan) and are brought into fa_tc
+// below under their old names.
 //
 // Tiles in shared memory. A tile is 64 rows of hd bf16 values, stored as
 // hd / 64 boxes of 64 rows x 128 bytes (8 KiB each), each box written by
@@ -26,74 +29,28 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace fa_tc {
+
+using tma::align_1024;
+using tma::bulk_load;
+using tma::encode_tiled;
+using tma::EncodeTiledFn;
+using tma::mbar_arrive;
+using tma::mbar_expect_tx;
+using tma::mbar_init;
+using tma::mbar_init_fence;
+using tma::mbar_wait;
+using tma::named_sync;
+using tma::smem_u32;
+using tma::tma_load_4d;
 
 constexpr int kTileRows = 64;                 // rows of a tile, of a box
 constexpr int kBoxBytes = kTileRows * 128;    // one 64 x 64 bf16 box
 constexpr int kRowBytes = 128;                // one swizzled box row
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// the first 1024-byte boundary at or after p (dynamic shared memory is
-// only 16-byte aligned)
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
-}
-
-// -- mbarriers ---------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// after the barriers are initialised, before any thread uses them
-__device__ __forceinline__ void mbar_init_fence() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// one arrival that also announces `bytes` of TMA traffic
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
-}
-
 // -- TMA ---------------------------------------------------------------
-
-// one box of a 4D map (hd, heads, S, B) at element coordinates
-// (c0, c1, c2, c3) into shared memory; completes on `bar`. Rows past S
-// in a batch are filled with zeros.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // the hd / 64 boxes of one 64-row tile: rows `row0` .. `row0` + 63 of
 // head `head` in batch `b`
@@ -105,24 +62,6 @@ __device__ __forceinline__ void tma_load_tile(uint8_t* dst,
 #pragma unroll
   for (int c = 0; c < HD / 64; ++c)
     tma_load_4d(dst + c * kBoxBytes, map, bar, c * 64, head, row0, b);
-}
-
-// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
-// aligned) into shared memory; completes on `bar`
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
-         "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// a barrier among `n` threads (a multiple of 32) under id `id` (id 0 is
-// __syncthreads)
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 // -- warpgroup register split --------------------------------------------
@@ -411,34 +350,6 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // -- host: tensor maps ----------------------------------------------------
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded (the
-// library links no -lcuda); null if the driver has none
-inline EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
 
 // A 4D map over a contiguous bf16 (B, S, heads, hd) tensor, innermost
 // first: (hd, heads, S, B), box (64, 1, 64, 1), 128-byte swizzle; reads

@@ -2,9 +2,9 @@
 // the M-DSL uplink and downlink.
 //
 // Replaces the Pallas TPU kernels of repro/kernels/quant_pack/quant_pack.py:
-//   quant_pack_ef_kernel<BITS, true>   <- quant_pack_ef_2d (_make_ef_kernel)
-//   quant_pack_ef_kernel<BITS, false>  <- quant_pack_2d (_kernel_int8/_int4)
-//   dequant_kernel<BITS>               <- dequant_unpack_2d (_make_dequant_kernel)
+//   quant_pack_kernel<BITS, true>   <- quant_pack_ef_2d (_make_ef_kernel)
+//   quant_pack_kernel<BITS, false>  <- quant_pack_2d (_kernel_int8/_int4)
+//   dequant_kernel<BITS>            <- dequant_unpack_2d (_make_dequant_kernel)
 //
 // What bounds them here: device-memory bytes. Per element the fused
 // uplink pass reads 8 B (delta + residual) and writes 4 B of residual
@@ -13,13 +13,36 @@
 // shapes (one (256, 128) block per leaf and worker) a launch moves only
 // ~20 MB, so the launch itself, not the bytes, is what the time shows.
 //
-// What the design does about it: one thread block per (256, 128) tile
-// and worker (grid = block x worker), so all C workers of a leaf go in
-// ONE launch instead of C. Pass 1 reads the tile as float4 and reduces
-// |acc| to amax (warp shuffles, then shared memory); pass 2 reads the
-// tile again (it is 128 KiB and still in L2), quantizes, packs and
-// writes with 16-byte loads and 4-byte stores, neighbouring threads on
-// neighbouring lanes. Nothing is staged in shared memory, so no dynamic
+// What held the first design back: one 256-thread block per (256, 128)
+// tile and worker, reading the tile twice (amax, then quantize) in two
+// 32-iteration float4 loops. At the paper shapes that is one tile per
+// leaf (C = 1 downlink, C = 50 uplink), so a launch took ~25 us on one
+// SM whatever the other 131 did: a latency chain, not bytes.
+//
+// The design now: each tile and worker gets a thread-block cluster of 8
+// CTAs (__cluster_dims__(8, 1, 1); grid = (8 x tiles per leaf, C)), and
+// every element is read from device memory once, into registers.
+//  * Row ownership (`vec_index` below, the one place the split is made;
+//    the wrapper's `_plan` passes the cluster size, the rows a CTA and
+//    the grid, which the entry point checks): int8, CTA k owns tile rows
+//    [32k, 32k + 32); int4, rows [16k, 16k + 16) and [128 + 16k, 128 +
+//    16k + 16), so that both nibbles of an output byte (row r low, row
+//    r + 128 high) are quantized in one CTA. Each of 256 threads holds 4
+//    float4 (16 elements; under EF x and r, 8 loads), neighbouring
+//    threads on neighbouring 16-byte words.
+//  * Scale: each CTA reduces |acc| to its amax (warp shuffles, then
+//    shared memory); the cluster's amax is the max of the 8 CTAs' words,
+//    read over distributed shared memory (mapa + ld.shared::cluster)
+//    between two cluster barriers. Max is exact, so the scale is bitwise
+//    the plain version's in any order. Rank 0 writes `scales`. The
+//    second barrier (each CTA arrives after its remote reads, waits
+//    before it exits) keeps every CTA's word alive until all have read
+//    it, and overlaps with the quantize.
+//  * Quantize from registers with the same hash arguments as before (the
+//    tile's index within the worker's leaf, the row within the tile, the
+//    lane), then pack and write with 4-byte stores, and the residual
+//    with 16-byte stores.
+// Nothing is staged in shared memory beyond 9 words, so no dynamic
 // shared memory or opt-in is needed.
 //
 // Bit-exactness (the wire spec the JAX refs pin):
@@ -36,12 +59,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int kBlockRows = 256;
 constexpr int kLanes = 128;
 constexpr int kTile = kBlockRows * kLanes;  // elements per scale block
 constexpr int kThreads = 256;
+constexpr int kCluster = 8;                         // CTAs a tile
+constexpr int kCtaRows = kBlockRows / kCluster;     // tile rows a CTA
+constexpr int kVecs = kCtaRows * kLanes / 4 / kThreads;  // float4 a thread
 
 template <int BITS> struct Q;
 template <> struct Q<8> {
@@ -108,80 +136,128 @@ __device__ __forceinline__ unsigned char nibbles(float lo, float hi) {
                                     (static_cast<int>(hi + 8.0f) << 4));
 }
 
-// grid = (blocks per worker leaf, C); x, r, res: (C, rows, 128) f32;
-// packed: (C, rows, 128) int8 or (C, rows/2, 128) uint8; scales (C, nb).
+__device__ __forceinline__ float amax4(float4 a) {
+  return fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(a.z), fabsf(a.w)));
+}
+
+// the float4 index within the tile (0 .. kTile / 4 - 1) of vector j of
+// thread t in cluster rank k: int8, rows [32k, 32k + 32); int4, vectors
+// 0-1 in rows [16k, 16k + 16) and vectors 2-3 the rows 128 below them
+template <int BITS>
+__device__ __forceinline__ int vec_index(int k, int j, int t) {
+  constexpr int kRowVecs = kLanes / 4;                 // float4 in a row
+  if (BITS == 8) return (k * kCtaRows + j * 8) * kRowVecs + t;
+  return ((j & 1) * 8 + k * (kCtaRows / 2) + (j >> 1) * 128) * kRowVecs + t;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the float at `p` in the shared memory of cluster CTA `rank`
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(tma::smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// grid = (kCluster x tiles per worker leaf, C), clusters of kCluster
+// CTAs along x; x, r, res: (C, rows, 128) f32; packed: (C, rows, 128)
+// int8 or (C, rows/2, 128) uint8; scales (C, rows / 256).
 template <int BITS, bool EF>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 quant_pack_kernel(const float* __restrict__ x, const float* __restrict__ r,
                   const int32_t* __restrict__ seeds, void* __restrict__ packed,
                   float* __restrict__ scales, float* __restrict__ res,
                   int rows) {
-  const int blk = blockIdx.x;
+  const int rank = blockIdx.x % kCluster;     // = %cluster_ctarank
+  const int blk = blockIdx.x / kCluster;
   const int w = blockIdx.y;
+  const int t = threadIdx.x;
   const size_t base =
       (static_cast<size_t>(w) * rows + static_cast<size_t>(blk) * kBlockRows) *
       kLanes;
   const float4* x4 = reinterpret_cast<const float4*>(x + base);
   const float4* r4 = EF ? reinterpret_cast<const float4*>(r + base) : nullptr;
 
-  // pass 1: amax over the tile
+  // the one read of this CTA's rows, and their amax
+  float4 acc[kVecs];
   float m = 0.0f;
-  for (int i = threadIdx.x; i < kTile / 4; i += kThreads) {
-    const float4 a = load_acc<EF>(x4, r4, i);
-    m = fmaxf(m, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)),
-                       fmaxf(fabsf(a.z), fabsf(a.w))));
+#pragma unroll
+  for (int j = 0; j < kVecs; ++j) {
+    acc[j] = load_acc<EF>(x4, r4, vec_index<BITS>(rank, j, t));
+    m = fmaxf(m, amax4(acc[j]));
   }
   for (int off = 16; off > 0; off >>= 1)
     m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
   __shared__ float warp_max[kThreads / 32];
-  __shared__ float s_scale;
-  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __shared__ float cta_max;
+  if ((t & 31) == 0) warp_max[t >> 5] = m;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float amax = warp_max[0];
-    for (int i = 1; i < kThreads / 32; ++i) amax = fmaxf(amax, warp_max[i]);
-    const float scale = amax > 0.0f ? __fmul_rn(amax, Q<BITS>::inv) : 1.0f;
-    s_scale = scale;
-    scales[static_cast<size_t>(w) * gridDim.x + blk] = scale;
+  if (t == 0) {
+    float a = warp_max[0];
+    for (int i = 1; i < kThreads / 32; ++i) a = fmaxf(a, warp_max[i]);
+    cta_max = a;
   }
-  __syncthreads();
-  const float scale = s_scale;
+  // the cluster's amax: lane l of every warp reads CTA l's word
+  cluster_arrive();
+  cluster_wait();
+  const int lane = t & 31;
+  float amax = ld_cluster(&cta_max, static_cast<uint32_t>(lane % kCluster));
+  for (int off = kCluster / 2; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  cluster_arrive();             // this CTA is done reading the others
+  const float scale = amax > 0.0f ? __fmul_rn(amax, Q<BITS>::inv) : 1.0f;
+  if (rank == 0 && t == 0)
+    scales[static_cast<size_t>(w) * (gridDim.x / kCluster) + blk] = scale;
+
+  // quantize from registers, pack, residual
   const uint32_t seed = static_cast<uint32_t>(seeds[w]);
   float4* o4 = EF ? reinterpret_cast<float4*>(res + base) : nullptr;
-
-  // pass 2: quantize, pack, residual
   if (BITS == 8) {
     char4* p4 =
         reinterpret_cast<char4*>(static_cast<int8_t*>(packed) + base);
-    for (int i = threadIdx.x; i < kTile / 4; i += kThreads) {
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const int i = vec_index<BITS>(rank, j, t);
       const int e = i * 4;
-      const float4 a = load_acc<EF>(x4, r4, i);
-      const float4 q = quantize4<BITS>(a, scale, seed, blk, e >> 7, e & 127);
+      const float4 q = quantize4<BITS>(acc[j], scale, seed, blk, e >> 7,
+                                       e & 127);
       p4[i] = make_char4(static_cast<signed char>(q.x),
                          static_cast<signed char>(q.y),
                          static_cast<signed char>(q.z),
                          static_cast<signed char>(q.w));
-      if (EF) o4[i] = residual4(a, q, scale);
+      if (EF) o4[i] = residual4(acc[j], q, scale);
     }
   } else {
     constexpr int kHalf = kTile / 8;  // float4 groups in the top 128 rows
     uchar4* p4 =
         reinterpret_cast<uchar4*>(static_cast<uint8_t*>(packed) + base / 2);
-    for (int i = threadIdx.x; i < kHalf; i += kThreads) {
+#pragma unroll
+    for (int j = 0; j < kVecs / 2; ++j) {
+      const int i = vec_index<BITS>(rank, j, t);   // low row; high: + kHalf
       const int e = i * 4;
       const int row = e >> 7, col = e & 127;
-      const float4 lo = load_acc<EF>(x4, r4, i);
-      const float4 hi = load_acc<EF>(x4, r4, i + kHalf);
-      const float4 ql = quantize4<BITS>(lo, scale, seed, blk, row, col);
-      const float4 qh = quantize4<BITS>(hi, scale, seed, blk, row + 128, col);
+      const float4 ql = quantize4<BITS>(acc[j], scale, seed, blk, row, col);
+      const float4 qh =
+          quantize4<BITS>(acc[j + 2], scale, seed, blk, row + 128, col);
       p4[i] = make_uchar4(nibbles(ql.x, qh.x), nibbles(ql.y, qh.y),
                           nibbles(ql.z, qh.z), nibbles(ql.w, qh.w));
       if (EF) {
-        o4[i] = residual4(lo, ql, scale);
-        o4[i + kHalf] = residual4(hi, qh, scale);
+        o4[i] = residual4(acc[j], ql, scale);
+        o4[i + kHalf] = residual4(acc[j + 2], qh, scale);
       }
     }
   }
+  cluster_wait();               // no CTA leaves while its word is read
 }
 
 // One thread per output element of n = blocks * 32768; scales are
@@ -212,9 +288,8 @@ dequant_kernel(const void* __restrict__ packed,
 
 template <int BITS>
 void launch_quant_pack(const float* x, const float* r, const int32_t* seeds,
-                       void* packed, float* scales, float* res, int C,
-                       int rows, cudaStream_t s) {
-  const dim3 grid(rows / kBlockRows, C);
+                       void* packed, float* scales, float* res, int rows,
+                       dim3 grid, cudaStream_t s) {
   if (r != nullptr)
     quant_pack_kernel<BITS, true>
         <<<grid, kThreads, 0, s>>>(x, r, seeds, packed, scales, res, rows);
@@ -226,20 +301,28 @@ void launch_quant_pack(const float* x, const float* r, const int32_t* seeds,
 }  // namespace
 
 // x, r, res: (C, rows, 128) f32 (r and res NULL for the plain pass);
-// seeds: (C,) int32; returns cudaGetLastError().
+// seeds: (C,) int32. The launch plan (cluster size, tile rows a CTA,
+// grid) comes from the wrapper's `_plan`; one that is not this kernel's
+// returns cudaErrorInvalidValue. Returns cudaGetLastError().
 extern "C" int qp_quant_pack(const void* x, const void* r, const void* seeds,
                              void* packed, void* scales, void* res, int C,
-                             int rows, int bits, void* stream) {
+                             int rows, int bits, int cluster, int cta_rows,
+                             int grid_x, int grid_y, void* stream) {
+  if (cluster != kCluster || cta_rows != kCtaRows || rows % kBlockRows != 0 ||
+      grid_x != kCluster * (rows / kBlockRows) || grid_y != C ||
+      (bits != 8 && bits != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* xf = static_cast<const float*>(x);
   const auto* rf = static_cast<const float*>(r);
   const auto* sd = static_cast<const int32_t*>(seeds);
   auto* sc = static_cast<float*>(scales);
   auto* rs = static_cast<float*>(res);
+  const dim3 grid(grid_x, grid_y);
   if (bits == 8)
-    launch_quant_pack<8>(xf, rf, sd, packed, sc, rs, C, rows, s);
+    launch_quant_pack<8>(xf, rf, sd, packed, sc, rs, rows, grid, s);
   else
-    launch_quant_pack<4>(xf, rf, sd, packed, sc, rs, C, rows, s);
+    launch_quant_pack<4>(xf, rf, sd, packed, sc, rs, rows, grid, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,10 +9,15 @@ JAX package vmaps a per-worker call. The downlink passes C = 1.
 
 Dispatch is by the device of the input: CPU tensors take the plain
 versions in ref.py, CUDA tensors launch the kernel (or raise).
+
+The quantize-pack launch is `_plan`'s: each (256, 128) tile and worker
+is split over a cluster of 8 CTAs, each owning 32 of the tile's rows
+(which rows is the kernel's `vec_index`).
 """
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -25,11 +30,35 @@ from repro_torch.kernels.quant_pack.ref import (BLOCK_ROWS, LANES,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+CLUSTER = 8               # CTAs a tile (the portable cluster size)
+
+
+@dataclass(frozen=True)
+class PackPlan:
+    cluster: int          # CTAs a (256, 128) tile, one cluster
+    cta_rows: int         # tile rows each CTA quantizes
+    grid: tuple[int, int]  # (cluster x tiles per worker leaf, C)
+
+
+def _plan(C: int, rows: int, bits: int) -> PackPlan:
+    """The launch of quant_pack_kernel for (C, rows, 128): one cluster
+    of CLUSTER CTAs per tile and worker. Raises ValueError on what the
+    kernel or the card does not take."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if C < 1 or rows < BLOCK_ROWS or rows % BLOCK_ROWS:
+        raise ValueError(f"quant_pack: rows {rows} is not a positive "
+                         f"multiple of {BLOCK_ROWS} (C = {C})")
+    if C > 65535:
+        raise ValueError(f"quant_pack: C = {C} over the grid's 65535")
+    return PackPlan(CLUSTER, BLOCK_ROWS // CLUSTER,
+                    (CLUSTER * (rows // BLOCK_ROWS), C))
+
 
 def _lib() -> ctypes.CDLL:
     lib = runtime.library("quant_pack")
     if lib.qp_quant_pack.argtypes is None:
-        lib.qp_quant_pack.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
+        lib.qp_quant_pack.argtypes = [_P] * 6 + [_I] * 7 + [_P]
         lib.qp_quant_pack.restype = _I
         lib.qp_dequant_unpack.argtypes = [_P, _P, _P, ctypes.c_longlong, _I,
                                           _P]
@@ -46,12 +75,11 @@ def _is_cpu(t: torch.Tensor) -> bool:
 
 
 def _launch_quant_pack(x, residual, seeds, bits, name):
-    if bits not in (8, 4):
-        raise ValueError(f"bits must be 8 or 4, got {bits}")
     C, rows, lanes = x.shape
-    if lanes != LANES or rows % BLOCK_ROWS:
-        raise ValueError(f"{name}: x must be (C, rows, 128) with rows % "
-                         f"{BLOCK_ROWS} == 0, got {tuple(x.shape)}")
+    if lanes != LANES:
+        raise ValueError(f"{name}: x must be (C, rows, 128), got "
+                         f"{tuple(x.shape)}")
+    plan = _plan(C, rows, bits)
     dev = x.device
     runtime.require(x, torch.float32, (C, rows, LANES), f"{name} x", dev)
     if residual is not None:
@@ -70,8 +98,8 @@ def _launch_quant_pack(x, residual, seeds, bits, name):
     err = _lib().qp_quant_pack(
         x.data_ptr(), None if residual is None else residual.data_ptr(),
         seeds.data_ptr(), packed.data_ptr(), scales.data_ptr(),
-        None if res is None else res.data_ptr(), C, rows, bits,
-        runtime.stream_ptr(x))
+        None if res is None else res.data_ptr(), C, rows, bits, plan.cluster,
+        plan.cta_rows, *plan.grid, runtime.stream_ptr(x))
     runtime.check(err, name)
     runtime.note_launch(name)
     return packed, scales, res

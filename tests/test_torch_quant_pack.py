@@ -125,3 +125,153 @@ def test_wrapper_rejects_other_devices():
     x = torch.zeros((1, 256, 128), device="meta")
     with pytest.raises(ValueError):
         ops.quant_pack_2d(x, torch.zeros(1, dtype=torch.int32, device="meta"))
+
+
+# -- the quantize-pack launch plan (kernels/quant_pack/ops.py `_plan`: a
+# tile split over a cluster of 8 CTAs) and a plain emulation of the kernel
+# that walks it. Which rows a CTA owns is decided in the kernel alone, by
+# `vec_index` in csrc/quant_pack.cu; `_vec_index` below transcribes it, so
+# these tests check the split as written there, and chip_smoke.py checks
+# the compiled kernel's bits on the card. ----------------------------------
+
+# (C, rows): the downlink, the uplink, the large leaf, a reduced fleet
+PLAN_SHAPES = [(1, 256), (50, 256), (50, 8192), (4, 512)]
+THREADS, VECS = 256, 4          # the kernel's kThreads and kVecs
+
+
+def _vec_index(bits, k, j, t):
+    """csrc/quant_pack.cu `vec_index`: the float4 index within the tile
+    of vector j of thread t in cluster rank k."""
+    row_vecs = 128 // 4
+    if bits == 8:
+        return (k * 32 + j * 8) * row_vecs + t
+    return ((j & 1) * 8 + k * 16 + (j >> 1) * 128) * row_vecs + t
+
+
+def _cta_vecs(bits, k):
+    """(VECS, THREADS) float4 indices CTA rank k loads, in the kernel's
+    order: under int4, vectors j and j + 2 share their output bytes."""
+    return torch.tensor([[_vec_index(bits, k, j, t) for t in range(THREADS)]
+                         for j in range(VECS)])
+
+
+def _cta(plan, x, y):
+    """(worker, tile within its leaf, cluster rank) of CTA (x, y): the
+    kernel's blockIdx.y, blockIdx.x / kCluster, blockIdx.x % kCluster."""
+    return y, x // plan.cluster, x % plan.cluster
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_plan_rows_partition_the_tile(bits):
+    plan = ops._plan(1, 256, bits)
+    vecs = [_cta_vecs(bits, k) for k in range(plan.cluster)]
+    flat = torch.cat([v.flatten() for v in vecs])
+    assert torch.equal(flat.sort().values, torch.arange(256 * 128 // 4))
+    for v in vecs:
+        rows = set((v.flatten() // 32).tolist())
+        assert len(rows) == plan.cta_rows == 32
+        # every thread holds 16 elements: 4 float4 vectors
+        assert plan.cta_rows * 128 == THREADS * VECS * 4
+        if bits == 4:
+            # both nibbles of every output byte (rows r and r + 128) in
+            # one CTA, and in one thread: vector j and vector j + 2
+            assert torch.equal(v[2:], v[:2] + 128 * 32)
+            low = {r for r in rows if r < 128}
+            assert {r + 128 for r in low} == rows - low
+            assert len(low) == 16
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("C,rows", PLAN_SHAPES)
+def test_plan_grid_covers_every_tile_once(C, rows, bits):
+    plan = ops._plan(C, rows, bits)
+    assert plan.grid == (8 * rows // 256, C)
+    assert plan.cluster == 8 and plan.cta_rows == 32
+    seen = {}
+    for y in range(plan.grid[1]):
+        for x in range(plan.grid[0]):
+            key = _cta(plan, x, y)
+            seen[key] = seen.get(key, 0) + 1
+    assert len(seen) == C * (rows // 256) * 8
+    assert set(seen.values()) == {1}
+
+
+@pytest.mark.parametrize("args,match", [
+    ((1, 100, 8), "multiple of 256"),
+    ((1, 0, 8), "multiple of 256"),
+    ((1, 256, 3), "bits"),
+    ((70000, 256, 8), "65535"),
+])
+def test_plan_rejects_what_the_kernel_does_not_take(args, match):
+    with pytest.raises(ValueError, match=match):
+        ops._plan(*args)
+
+
+def _emulate_quant_pack(plan, bits, x, residual, seeds):
+    """The kernel's cluster walk in plain PyTorch: each CTA loads its
+    float4 vectors (`_vec_index`) and reduces |acc| over them, the cluster
+    takes the max of the 8 CTA maxima, and each CTA quantizes, packs and
+    (under EF) forms the residual of its own vectors. Returns what
+    quant_pack_ref / quant_pack_ef_ref return, and the per-CTA maxima."""
+    C, rows, _ = x.shape
+    qmax = ref.QMAX[bits]
+    inv = torch.tensor(np.float32(1.0 / qmax))
+    prow = rows if bits == 8 else rows // 2
+    packed = torch.zeros((C, prow, 128),
+                         dtype=torch.int8 if bits == 8 else torch.uint8)
+    scales = torch.zeros((C, rows // 256))
+    res = None if residual is None else torch.zeros_like(x)
+    cta_max = torch.zeros((C, rows // 256, plan.cluster))
+    for y in range(plan.grid[1]):
+        for x_ in range(0, plan.grid[0], plan.cluster):
+            _, tile, _ = _cta(plan, x_, y)
+            sl = slice(tile * 256, (tile + 1) * 256)
+            acc = x[y, sl] if residual is None else x[y, sl] + residual[y, sl]
+            acc4 = acc.reshape(-1, 4)
+            vecs = [_cta_vecs(bits, k) for k in range(plan.cluster)]
+            for k, v in enumerate(vecs):
+                cta_max[y, tile, k] = acc4[v].abs().max()
+            amax = cta_max[y, tile].max()
+            scale = amax * inv if amax > 0 else torch.tensor(1.0)
+            scales[y, tile] = scale                 # rank 0 writes it
+            u4 = ref.block_uniform(seeds[y:y + 1], tile)[0].reshape(-1, 4)
+            p4 = packed[y].reshape(-1, 4)
+            r4 = None if res is None else res[y, sl].reshape(-1, 4)
+            for v in vecs:
+                q = torch.floor(acc4[v] / scale + u4[v]).clamp(-qmax, qmax)
+                off = tile * 256 * 32 if bits == 8 else tile * 128 * 32
+                if bits == 8:
+                    p4[off + v] = q.to(torch.int8)
+                else:                     # vector j low, j + 2 high
+                    byte = ((q[:2] + 8).to(torch.int32)
+                            | ((q[2:] + 8).to(torch.int32) << 4))
+                    p4[off + v[:2]] = byte.to(torch.uint8)
+                if r4 is not None:
+                    r4[v] = (acc4[v].double()
+                             - q.double() * scale.double()).float()
+    out = (packed, scales) if res is None else (packed, scales, res)
+    return out, cta_max
+
+
+@pytest.mark.parametrize("ef", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("C,rows", [(1, 256), (3, 512)])
+def test_cluster_emulation_is_bitwise_the_plain_version(C, rows, bits, ef):
+    x = _x(30 + bits + C, C, rows, 0.01)
+    r = _x(40 + bits + C, C, rows, 0.001)
+    if C > 1:
+        x[0, :256] = 0.0                           # acc is only residual
+        x[1, :256], r[1, :256] = 0.0, 0.0          # an all-zero tile
+    seeds = torch.from_numpy(_seeds(rows + bits, C))
+    tx, tr = torch.from_numpy(x), torch.from_numpy(r)
+    plan = ops._plan(C, rows, bits)
+    got, cta_max = _emulate_quant_pack(plan, bits, tx, tr if ef else None,
+                                       seeds)
+    want = (ref.quant_pack_ef_ref(tx, tr, seeds, bits=bits) if ef
+            else ref.quant_pack_ref(tx, seeds, bits=bits))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the cluster's max is what the scale needs: a CTA's own max alone
+    # would give another scale in most tiles
+    nonzero = cta_max.amax(-1) > 0
+    assert bool((cta_max.amin(-1) < cta_max.amax(-1))[nonzero].any())
