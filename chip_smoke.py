@@ -13,15 +13,24 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      (256, 128) block per CNN5 leaf; the downlink at C = 1) and at one
      large leaf (2^20 elements x C = 50), every wire_agg mode with partial
      and all-lost masks; prints max errors and median CUDA-event times,
-     and keeps the large leaf's int4 quant_pack_ef time as a row of its
-     own (quant_pack runs each tile over a cluster of 8 CTAs);
+     and keeps the large leaf's int4 quant_pack_ef and wire_agg times and
+     the int8 dequant_unpack of all 50 workers as rows of their own
+     (quant_pack runs each tile over a cluster of 8 CTAs; wire_agg stages
+     a strip of rows of all workers by TMA; dequant_unpack is a 2D grid
+     whose warps store 512 contiguous bytes an instruction); the int8
+     decode's library yardstick is one broadcast multiply (int8 x f32),
+     checked bitwise against the plain version and timed from a CUDA
+     graph as the kernel is; and the large-leaf int4 wire_agg mean with
+     25, the partial mask's and all 50 workers delivered (its time
+     follows the delivered count);
   4. checks the engine on a small input: one round on the card against
      the same round on the CPU (plain versions), same data and draws;
   5. drives the main path: `repro_torch.experiments.run` on the
      `low-bandwidth-int4` scenario (C = 50, CNN5 width 8, int4 uplink,
      int8 downlink) for 3 rounds with the launch counts reset just before
      and read just after; every kernel must have launched 10 leaves x 3
-     rounds = 30 times; then profiles one more round;
+     rounds = 30 times; prints each round's delivered count (the workers
+     wire_agg does not mask out); then profiles one more round;
   6. the serve slice's kernels against their plain versions on the card:
      flash_attention at the RecurrentGemma-9B prefill shape (B 4, S 4096,
      16 heads over 1 kv head, hd 256, window 2048, bf16), at a ragged
@@ -44,6 +53,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      tensor-core kernel) 12 times and rglru_scan 26 times, decode
      neither (a warm-up pass and the timed pass: 24 and 52 in all);
      then profiles one more prefill and one decode step;
+     then flash_attention at StableLM-3B's head dim 80 (which runs in the
+     128 build, its padded columns zero): the prefill's shape (B 4, S
+     4096, 32 heads, MHA, causal) in bf16 and f32, each asserting its
+     route and timed beside SDPA; and StableLM-3B served at full width
+     the same way (batch 4, prompt 4096, gen 32): each prefill launches
+     the hd-80 forward 32 times, decode none (64 in all);
   9. the mesh slice's kernels against their plain versions on the card:
      pso_update (Eq. 8) bitwise in f32 and bf16, clip on and off, at the
      largest SmolLM-360M leaf stacked over W = 2 (2 x 32 x 960 x 2560)
@@ -68,11 +83,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      launches 32 layers x (2 workers x 2 (forward, remat recompute) + 3
      evaluations) = 224 times, its backward 32 x 2 = 64 times and
      pso_update once per leaf, 11 times, and the CUDA-core flash kernels
-     (the _f32 counters) never; then profiles one more round;
+     (the _f32 counters) never; then profiles one more round; then the
+     training forward and the backward at StableLM-3B's hd 80 (B 2, S
+     2048, 32 heads, MHA, causal) and at RecurrentGemma-9B's hd 256 (B 2,
+     S 2048, 16 heads over 1, window 2048; the CUDA-core kernels, no path
+     runs it yet), bf16 and f32, as the other backward cases, the bf16
+     backward timed beside SDPA's backward alone; and one M-DSL round of
+     StableLM-3B at full width with the depth cut to 2 layers (W 2, B 1,
+     S 2048, bf16; after a warm-up round) through `Transformer.loss`:
+     launches as phase 11's per layer, losses finite;
  12. prints the card line, the `kernels` JSON line (each row with its
      share of bound = bound_ms / ms; each flash row with its cores, the
      CUDA-core kernel's and the f32 path's times; a row of the forward at
-     the mesh shape and one of quant_pack_ef at the large leaf) and, last,
+     the mesh shape, rows of quant_pack_ef, wire_agg and dequant_unpack at
+     the large leaf, of the forward and backward at hd 80 and of the
+     backward at hd 256) and, last,
      the ok line.
 
 Tolerances: payloads, scales, decodes and the wire_agg median bitwise;
@@ -176,8 +201,9 @@ def ulp(x):
 
 def kernel_checks(dev):
     """Phase 3. Returns {kernel: {max_abs_err, ms, plain_ms, bound_ms,
-    bound_by}} at the main path's shapes, and the same for quant_pack_ef
-    at the large leaf (int4, C = 50, rows 8192)."""
+    bound_by}} at the main path's shapes, and the same at the large leaf
+    (C = 50, rows 8192) for quant_pack_ef and wire_agg (int4) and for
+    dequant_unpack over all 50 workers (int8, the dense route's decode)."""
     import torch
     from repro_torch.kernels.quant_pack import ops as qops
     from repro_torch.kernels.quant_pack import ref as qref
@@ -187,7 +213,7 @@ def kernel_checks(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     out = {k: {"max_abs_err": 0.0} for k in
            ("quant_pack_ef", "wire_agg", "quant_pack", "dequant_unpack")}
-    large = {}
+    large = {k: {} for k in ("quant_pack_ef", "wire_agg", "dequant_unpack")}
 
     def err(name, got, want):
         e = float((got.float() - want.float()).abs().max())
@@ -218,7 +244,7 @@ def kernel_checks(dev):
             check(bool(((kr - pr).abs() <= ulp(x + r)).all()),
                   f"quant_pack_ef residual > 1 ulp (max {e}) bits={bits}")
             if label == "large" and bits == 4:
-                large["max_abs_err"] = e
+                large["quant_pack_ef"]["max_abs_err"] = e
             # quant_pack (downlink: C = 1 on the main path)
             for Cq in ((1, C) if label == "main" else (C,)):
                 xq, sq = x[:Cq].contiguous(), s[:Cq].contiguous()
@@ -234,7 +260,9 @@ def kernel_checks(dev):
                 torch.cuda.synchronize()
                 check(torch.equal(kd, pd), f"dequant_unpack bits={bits} "
                                            f"C={Cq} {label}")
-                err("dequant_unpack", kd, pd)
+                e = err("dequant_unpack", kd, pd)
+                if label == "large" and bits == 8:
+                    large["dequant_unpack"]["max_abs_err"] = e
             # wire_agg: every mode, partial / all-lost masks, weights
             d = qref.dequant_unpack_ref(pp, ps, bits=bits)
             part = (torch.rand(C, generator=g, device=dev) > 0.3).float()
@@ -258,6 +286,9 @@ def kernel_checks(dev):
                         ok = bool(((ka - pa).abs() <= tol).all())
                     check(ok, f"wire_agg {agg} {mask_name} bits={bits} "
                               f"{label}: max err {e}")
+                    if label == "large" and bits == 4:
+                        large["wire_agg"]["max_abs_err"] = max(
+                            large["wire_agg"].get("max_abs_err", 0.0), e)
             print(f"[check] bits={bits} {label} (C=50, rows={rows}): "
                   f"all four kernels match their plain versions", flush=True)
 
@@ -270,40 +301,93 @@ def kernel_checks(dev):
             pb1 = n1 if bits == 8 else n1 // 2
             q1, q1s = qref.quant_pack_ref(x1, s1, bits=bits)
             one = torch.ones(C, device=dev)
-            # name: (kernel call, plain call, workers, bytes moved, ops)
+            # the library yardstick (timed here, used nowhere in the port):
+            # the int8 decode is one broadcast multiply, int8 x f32 -> f32
+            def lib_dequant(p, sc):
+                return lambda: p.view(p.shape[0], -1, 256, 128) * \
+                    sc[:, :, None, None]
+            # name: (kernel call, plain call, workers, bytes moved, ops,
+            # library call or None)
             cases = {
                 "quant_pack_ef": (
                     lambda: qops.quant_pack_ef_2d(x, r, s, bits=bits),
                     lambda: qref.quant_pack_ef_ref(x, r, s, bits=bits), C,
-                    8 * n + 4 * C + pbytes + 4 * C * nb + 4 * n, 25 * n),
+                    8 * n + 4 * C + pbytes + 4 * C * nb + 4 * n, 25 * n,
+                    None),
                 "wire_agg": (
                     lambda: wops.wire_agg_2d(pp, ps, part, one, bits=bits),
                     lambda: wref.wire_agg_ref(pp, ps, part, one, bits=bits),
-                    C, pbytes + 4 * C * nb + 8 * C + 4 * n1, 3 * n),
+                    C, pbytes + 4 * C * nb + 8 * C + 4 * n1, 3 * n, None),
                 "quant_pack": (
                     lambda: qops.quant_pack_2d(x1, s1, bits=bits),
                     lambda: qref.quant_pack_ref(x1, s1, bits=bits), 1,
-                    4 * n1 + 4 + pb1 + 4 * nb, 23 * n1),
+                    4 * n1 + 4 + pb1 + 4 * nb, 23 * n1, None),
                 "dequant_unpack": (
                     lambda: qops.dequant_unpack_2d(q1, q1s, bits=bits),
                     lambda: qref.dequant_unpack_ref(q1, q1s, bits=bits), 1,
-                    pb1 + 4 * nb + 4 * n1, 2 * n1),
+                    pb1 + 4 * nb + 4 * n1, 2 * n1,
+                    lib_dequant(q1, q1s) if bits == 8 else None),
+                # the dense route's decode of all C stacked workers
+                "dequant_unpack C=50": (
+                    lambda: qops.dequant_unpack_2d(pp, ps, bits=bits),
+                    lambda: qref.dequant_unpack_ref(pp, ps, bits=bits), C,
+                    pbytes + 4 * C * nb + 4 * n, 2 * n,
+                    lib_dequant(pp, ps) if bits == 8 else None),
             }
-            for name, (kern, plain, workers, nbytes, ops) in cases.items():
+            for name, (kern, plain, workers, nbytes, ops,
+                       library) in cases.items():
                 t = {"ms": graph_ms(kern, 20), "eager_ms": time_ms(kern, 50),
-                     "plain_ms": time_ms(plain, 5)}
+                     "plain_ms": time_ms(plain, 5), "library_ms": None}
+                if library is not None:
+                    lo = library()
+                    torch.cuda.synchronize()
+                    check(torch.equal(lo.reshape(plain().shape), plain()),
+                          f"{name} bits={bits} {label}: the library call "
+                          f"is not bitwise the plain version")
+                    t["library_ms"] = graph_ms(library, 20)
+                    del lo
                 bnd, by = bound_ms(nbytes, ops)
-                print(f"[time] {name} bits={bits} {label} C={workers} "
+                kept = (f" ({int(part.sum())} delivered)"
+                        if name == "wire_agg" else "")
+                print(f"[time] {name} bits={bits} {label} C={workers}{kept} "
                       f"rows={rows}: device {t['ms']:.5f} ms/launch, eager "
                       f"call {t['eager_ms']:.4f} ms, plain "
-                      f"{t['plain_ms']:.4f} ms, bound {bnd:.3g} ms ({by}, "
-                      f"{nbytes} B)", flush=True)
+                      f"{t['plain_ms']:.4f} ms, library "
+                      + ("none" if library is None else
+                         f"{t['library_ms']:.5f} ms/launch (broadcast "
+                         f"multiply)")
+                      + f", bound {bnd:.3g} ms ({by}, {nbytes} B)",
+                      flush=True)
                 # the main path: int4 uplink + aggregate at C = 50, int8
                 # downlink at C = 1, one block per leaf
-                if label == "main" and bits == MAIN_BITS[name]:
+                if label == "main" and bits == MAIN_BITS.get(name):
                     out[name].update(t, bound_ms=bnd, bound_by=by)
-                if label == "large" and bits == 4 and name == "quant_pack_ef":
-                    large.update(t, bound_ms=bnd, bound_by=by)
+                # the large leaf: int4 uplink and aggregate, the int8
+                # decode of all C workers
+                key = name.split()[0]
+                if label == "large" and (
+                        (bits == 4 and name in ("quant_pack_ef", "wire_agg"))
+                        or (bits == 8 and name == "dequant_unpack C=50")):
+                    large[key].update(t, bound_ms=bnd, bound_by=by)
+            if label == "large" and bits == 4:
+                # wire_agg skips the workers it masks out, so its time
+                # follows the delivered count: the first k of C delivered
+                by_k = {}
+                for k in (C // 2, int(part.sum()), C):
+                    mk = (torch.arange(C, device=dev) < k).float()
+                    ka = wops.wire_agg_2d(pp, ps, mk, one, bits=bits)
+                    pa = wref.wire_agg_ref(pp, ps, mk, one, bits=bits)
+                    torch.cuda.synchronize()
+                    check(bool(((ka - pa).abs() <= SUM_RTOL * d.abs().sum(0)
+                                ).all()),
+                          f"wire_agg mean, {k} delivered, large leaf")
+                    by_k[k] = graph_ms(lambda: wops.wire_agg_2d(
+                        pp, ps, mk, one, bits=bits), 20)
+                large["wire_agg"]["ms_by_delivered"] = by_k
+                print("[time] wire_agg bits=4 large C=50 rows=8192 by "
+                      "delivered count: " + ", ".join(
+                          f"{k}: {v:.5f} ms/launch" for k, v in by_k.items()),
+                      flush=True)
     print("[check] max abs err vs plain (all shapes, both widths): " +
           ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in out.items()),
           flush=True)
@@ -464,9 +548,10 @@ def flash_out_check(label, got, want):
 
 def flash_route(dtype: str, hd: int, bwd: bool = False) -> str:
     """The counter a flash launch adds to: the tensor-core kernels take
-    bf16 at hd 64, 128, 256 (backward 64, 128); the CUDA-core ones the
-    rest."""
-    tc = dtype == "bfloat16" and hd in ((64, 128) if bwd else (64, 128, 256))
+    bf16 at the head dims that run in their 64, 128 or 256 builds (33 to
+    256 forward, 33 to 128 backward; hd % 8 == 0); the CUDA-core ones
+    the rest."""
+    tc = dtype == "bfloat16" and 32 < hd <= (128 if bwd else 256)
     name = "flash_attention_bwd" if bwd else "flash_attention"
     return name if tc else name + "_f32"
 
@@ -966,16 +1051,28 @@ def flash_bwd_checks(dev):
 
     g = torch.Generator(device=dev).manual_seed(4)
     results = [flash_bwd_case(dev, c, g) for c in FLASH_BWD_CASES]
-    for hd in (64, 128, 256):
+    # both libraries: every hd % 8 == 0 up to 256 has a launch, no other,
+    # as the wrappers' rule (`padded_head_dim`) says
+    for hd in range(0, 265):
+        want = hd % 8 == 0 and 0 < hd <= 256
+        try:
+            fops.padded_head_dim(hd)
+            rule = True
+        except ValueError:
+            rule = False
         try:
             fops.require_bwd_head_dim(hd)
-            ok = hd != 256
+            ok = want
         except ValueError:
-            ok = hd == 256
-        check(ok, f"flash backward library: head_dim {hd} "
-                  f"{'accepted' if hd == 256 else 'refused'}")
-    print("[check] flash backward library: head dims 64 and 128 accepted, "
-          "256 refused", flush=True)
+            ok = not want
+        check(ok and rule == want and
+              bool(fops._lib().fa_supports_head_dim(hd)) == want and
+              bool(fops._bwd_lib().fa_bwd_supports_head_dim(hd)) == want,
+              f"flash libraries: head_dim {hd} "
+              f"{'refused' if want else 'accepted'}")
+    print("[check] flash libraries, forward and backward, and the wrappers' "
+          "rule: head dims 8, 16, ..., 256 accepted, every other in 0-264 "
+          "refused", flush=True)
     err = max(r[0] for r in results)
     q, k, v, out, do, lse, kw = results[0][1]
     B, S, H, hd = q.shape
@@ -1258,6 +1355,253 @@ def profile_mesh(spec) -> None:
     torch.cuda.empty_cache()
 
 
+# -- this slice: flash at every head dim, StableLM-3B ----------------------
+
+HD_ARCH = "stablelm-3b"          # d_model 2560 over 32 heads: hd 80, MHA
+HD_SERVE_BATCH, HD_SERVE_PROMPT, HD_SERVE_GEN = 4, 4096, 32
+HD_MESH_LAYERS, HD_MESH_B, HD_MESH_S = 2, 1, 2048
+# StableLM-3B's attention: the serve prefill's forward and the training
+# shape's forward + backward, bf16 (tensor cores, run in the 128 build)
+# and f32; RecurrentGemma-9B's hd-256 backward (16 heads over 1, window
+# 2048), which no model path runs yet (its training waits for the
+# scan's backward)
+HD80_FWD_CASES = [
+    ("hd80", 4, 4096, 4096, 32, 32, 80, "bfloat16", True, 0, None, None),
+    ("hd80 f32", 4, 4096, 4096, 32, 32, 80, "float32", True, 0, None, None),
+]
+HD_BWD_CASES = [
+    ("hd80", 2, 2048, 2048, 32, 32, 80, "bfloat16", True, 0, None, None),
+    ("hd80 f32", 2, 2048, 2048, 32, 32, 80, "float32", True, 0, None, None),
+    ("hd256", 2, 2048, 2048, 16, 1, 256, "bfloat16", True, 2048, None, None),
+    ("hd256 f32", 2, 2048, 2048, 16, 1, 256, "float32", True, 2048, None,
+     None),
+]
+
+
+def hd80_forward_checks(dev):
+    """The forward at StableLM-3B's prefill shape (B 4, S 4096, 32 heads,
+    MHA, hd 80, causal) in bf16 and f32 against the plain version, each
+    asserting its route; times, SDPA's and the bound. Returns the bf16
+    row (with the f32 path's and SDPA's f32 times)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    row = {}
+    for case in HD80_FWD_CASES:
+        err, (q, k, v, kw) = flash_case_check(dev, case, g)
+        B, S, H, hd = q.shape
+        pairs = B * H * S * (S + 1) // 2
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        bnd, by = bound_ms(nbytes, 4 * hd * pairs, BF16_OPS_PER_S
+                           if q.dtype == torch.bfloat16 else F32_OPS_PER_S)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        t = {"ms": graph_ms(lambda: fops.flash_attention(q, k, v, **kw), 5),
+             "eager_ms": time_ms(lambda: fops.flash_attention(q, k, v, **kw),
+                                 5),
+             "plain_ms": time_ms(lambda: fref.attention_ref(
+                 q, k, v, causal=True), 2),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True), 5)}
+        print(f"[time] flash_attention {case[0]} (B={B} S={S} H={H} hd={hd} "
+              f"causal {case[7]}, {flash_route(case[7], hd)}): device "
+              f"{t['ms']:.4f} ms/launch, eager call {t['eager_ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.3f} ms, library (SDPA, causal) "
+              f"{t['library_ms']:.4f} ms; bound {bnd:.4g} ms ({by}; {pairs} "
+              f"pairs at 4 hd operations, {nbytes} B)", flush=True)
+        if q.dtype == torch.bfloat16:
+            row = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by)
+        else:
+            row.update(f32_ms=t["ms"], f32_library_ms=t["library_ms"],
+                       f32_max_abs_err=err)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return row
+
+
+def hd80_serve_path():
+    """StableLM-3B served at full width through the user's entry point
+    (random bf16 weights from a seed), counts reset just before and read
+    just after: each prefill launches the hd-80 forward once a layer, 32
+    times, decode none; a warm-up pass and the timed pass."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import serve
+
+    layers = get_arch(HD_ARCH).num_layers
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    rec = serve(HD_ARCH, batch=HD_SERVE_BATCH, prompt_len=HD_SERVE_PROMPT,
+                gen_len=HD_SERVE_GEN, reduced=False)
+    torch.cuda.synchronize()
+    counts = runtime.counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[serve] {HD_ARCH} full width (hd 80) B={HD_SERVE_BATCH} prompt "
+          f"{HD_SERVE_PROMPT} gen {HD_SERVE_GEN}: prefill "
+          f"{rec['prefill_s']:.4f} s ({rec['prefill_tok_per_s']:.1f} tok/s), "
+          f"decode {rec['decode_s']:.4f} s for {HD_SERVE_GEN - 1} steps "
+          f"({rec['decode_tok_per_s']:.2f} tok/s), peak memory "
+          f"{peak / 2**30:.2f} GiB; {wall:.1f} s with init and warm-up; "
+          f"timed-pass launches {rec['launches']}, all launches {counts}; "
+          f"sample {rec['output_sample']}", flush=True)
+    check(rec["output_shape"] == [HD_SERVE_BATCH, HD_SERVE_GEN],
+          f"{HD_ARCH} serve output shape {rec['output_shape']}")
+    check(rec["logits_finite"], f"{HD_ARCH} serve logits not finite")
+    check(rec["launches"] == {"prefill": {"flash_attention": layers},
+                              "decode": {}},
+          f"{HD_ARCH} serve: one pass launched {rec['launches']}, expected "
+          f"{layers} hd-80 flash launches in the prefill and none in decode")
+    check(counts == {"flash_attention": 2 * layers},
+          f"{HD_ARCH} serve launched {counts}, expected "
+          f"{{'flash_attention': {2 * layers}}}")
+    return counts
+
+
+def time_flash_bwd(label, q, k, v, out, do, lse, kw):
+    """Device, eager, plain and SDPA-backward-alone times of the backward
+    at one shape, and its bound (10 hd operations a unmasked pair)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    mask = fref.attention_mask(S, S, causal=kw["causal"], window=kw["window"],
+                               q_offset=0, kv_len=S, device=q.device)
+    pairs = int(mask.sum()) * B * H
+    del mask
+    nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                  + do.numel()) + 4 * lse.numel()
+    bnd, by = bound_ms(nbytes, 10 * hd * pairs, BF16_OPS_PER_S)
+    G = H // K
+    qt = q.transpose(1, 2).contiguous().requires_grad_()
+    kt = k.transpose(1, 2).repeat_interleave(G, 1).contiguous() \
+        .requires_grad_()
+    vt = v.transpose(1, 2).repeat_interleave(G, 1).contiguous() \
+        .requires_grad_()
+    dot = do.transpose(1, 2)
+    # the masks here are causal with a window >= S: SDPA's is_causal
+    check(kw["window"] == 0 or kw["window"] >= S, f"{label}: SDPA yardstick "
+          f"needs window 0 or >= S")
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def bwd():
+        return fops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+
+    t = {"ms": graph_ms(bwd, 2), "eager_ms": time_ms(bwd, 3),
+         "plain_ms": time_ms(lambda: fref.attention_bwd_ref(
+             q, k, v, out, do, lse, **kw), 2),
+         "library_ms": time_ms(lambda: torch.autograd.grad(
+             o_sdpa, (qt, kt, vt), dot, retain_graph=True), 5)}
+    print(f"[time] flash backward {label} (B={B} S={S} H={H} K={K} hd={hd} "
+          f"window={kw['window']} bf16, {flash_route('bfloat16', hd, True)}):"
+          f" device {t['ms']:.4f} ms/launch, eager call {t['eager_ms']:.4f} "
+          f"ms, plain {t['plain_ms']:.3f} ms, library (SDPA backward alone) "
+          f"{t['library_ms']:.4f} ms; bound {bnd:.4g} ms ({by}; {pairs} pairs "
+          f"at 10 hd operations, {nbytes} B)", flush=True)
+    del o_sdpa, qt, kt, vt
+    return dict(t, bound_ms=bnd, bound_by=by)
+
+
+def hd_backward_checks(dev):
+    """The training forward and the backward at StableLM-3B's training
+    shape (hd 80) and at RecurrentGemma-9B's attention shape (hd 256), in
+    bf16 and f32, against the plain versions and autograd, each asserting
+    its route; the bf16 backward times beside SDPA's backward alone.
+    Returns {"hd80": row, "hd256": row}."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = {}
+    for case in HD_BWD_CASES:
+        err, inputs, _ = flash_bwd_case(dev, case, g)
+        if case[7] == "bfloat16":
+            rows[case[0]] = dict(time_flash_bwd(case[0], *inputs),
+                                 max_abs_err=err)
+        else:
+            rows[case[0].split()[0]]["f32_max_abs_err"] = err
+        del inputs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def hd80_mesh_round(dev):
+    """One M-DSL round of StableLM-3B at full width through the model's
+    code (`Transformer.loss` under the mesh engine's train step), the
+    depth cut to HD_MESH_LAYERS layers: W 2, B 1, S 2048, bf16, random
+    weights from a seed, the `mesh/smollm-smoke` scenario's algorithm and
+    wire. A warm-up round, then the timed round; counts reset just before
+    the two and read just after."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import swarm_dist
+    from repro_torch.experiments import get_scenario
+    from repro_torch.kernels import runtime
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.pytree import tree_leaves
+
+    cfg = dataclasses.replace(get_arch(HD_ARCH), num_layers=HD_MESH_LAYERS)
+    spec = get_scenario("mesh/smollm-smoke")
+    a = spec.algo
+    dcfg = swarm_dist.DistSwarmConfig(num_spatial=MESH_W,
+                                      local_steps=a.local_steps, tau=a.tau,
+                                      hp=a.hp, comm=spec.comm)
+    model = Transformer(cfg)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(gen, dev)
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    state = swarm_dist.init_state(params, dcfg)
+    step = swarm_dist.build_train_step(model.loss, dcfg)
+
+    def batch(lead):
+        toks = torch.randint(0, cfg.vocab_size, lead + (HD_MESH_B, HD_MESH_S),
+                             generator=gen, device=dev)
+        return {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+
+    runtime.reset_counts()
+    times, losses = [], []
+    for _ in range(2):
+        draws = swarm_dist.sample_draws(gen, dcfg, state.global_params, dev)
+        wb, eb = batch((MESH_W,)), batch(())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, info = step(state, wb, eb, draws)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(info.global_loss))
+    counts = runtime.counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 2 * n for k, n in mesh_launches_per_round(
+        cfg, len(tree_leaves(params))).items()}
+    print(f"[mesh] {HD_ARCH} full width, depth cut to {HD_MESH_LAYERS} "
+          f"({n_params} params, bf16, hd 80) W={MESH_W} B={HD_MESH_B} "
+          f"S={HD_MESH_S}: round {times[1]:.4f} s after a {times[0]:.4f} s "
+          f"warm-up ({MESH_W * HD_MESH_B * HD_MESH_S / times[1]:.1f} tok/s), "
+          f"global loss {losses}, worker losses {info.losses.tolist()}, "
+          f"peak memory {peak / 2**30:.2f} GiB; launches {counts}",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses)
+          and bool(torch.isfinite(info.losses).all()),
+          f"{HD_ARCH} mesh round: losses not finite")
+    check(all(bool(torch.isfinite(x).all())
+              for x in tree_leaves(state.global_params)),
+          f"{HD_ARCH} mesh round: global params not finite")
+    check(counts == want, f"{HD_ARCH} mesh rounds launched {counts}, "
+                          f"expected {want}")
+    del params, state, step, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1300,8 +1644,9 @@ def main() -> None:
     for t in range(ROUNDS):
         print(f"[main] round {t + 1}: {rec['round_time_s'][t]:.4f} s "
               f"loss={rec['global_loss'][t]:.5f} acc={rec['acc'][t]:.4f} "
-              f"selected={rec['selected'][t]}/{rec['num_workers']}",
-              flush=True)
+              f"selected={rec['selected'][t]}/{rec['num_workers']} "
+              f"delivered={rec['delivered'][t]} (wire_agg's unmasked "
+              f"workers)", flush=True)
     print(f"[main] {ROUNDS} rounds of low-bandwidth-int4 (C=50, cnn5 w8, "
           f"{rec['n_params']} params) in {wall:.2f} s incl. setup; "
           f"launches {counts}", flush=True)
@@ -1324,6 +1669,8 @@ def main() -> None:
     small_serve_check(dev)
     serve_counts = serve_main_path()
     profile_serve(dev)
+    hd80_row = hd80_forward_checks(dev)
+    hd80_serve_counts = hd80_serve_path()
 
     bwd_row, mesh_fwd_row = flash_bwd_checks(dev)
     mesh_stats = {"pso_update": pso_checks(dev),
@@ -1331,6 +1678,8 @@ def main() -> None:
     small_mesh_check(dev)
     mesh_counts, mesh_spec = mesh_main_path()
     profile_mesh(mesh_spec)
+    hd_bwd_rows = hd_backward_checks(dev)
+    hd80_mesh_counts = hd80_mesh_round(dev)
 
     src = {"quant_pack_ef": ("quant_pack",
                              "src/repro/kernels/quant_pack/quant_pack.py:172"),
@@ -1345,18 +1694,25 @@ def main() -> None:
                 "replaces": src[name][1], "launches": counts[name],
                 "max_abs_err": s["max_abs_err"], "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-                "bound_by": s["bound_by"], "library_ms": None,
+                "bound_by": s["bound_by"], "library_ms": s["library_ms"],
                 "eager_ms": s["eager_ms"], "check": "pass"}
                for name, s in stats.items()]
-    # quant_pack_ef at the large leaf (int4, C = 50, rows 8192): not a
-    # main-path shape; its launches are the kernel's on the main path
-    qpef = next(k for k in kernels if k["name"] == "quant_pack_ef")
-    kernels.append(dict(
-        qpef, name="quant_pack_ef (large leaf)",
-        shape="int4, C=50 x (8192, 128) f32; not on the main path",
-        **{key: large_leaf[key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "eager_ms")}))
+    # the large leaf (C = 50, rows 8192): not a main-path shape; the
+    # launches are each kernel's on the main path
+    shapes = {"quant_pack_ef": "int4, C=50 x (8192, 128) f32",
+              "wire_agg": "int4 mean, C=50 x (4096, 128) u8 -> (8192, 128)",
+              "dequant_unpack": "int8, C=50 x (8192, 128) (the dense "
+                                "route's decode of all workers)"}
+    for name, shape in shapes.items():
+        row = next(k for k in kernels if k["name"] == name)
+        kernels.append(dict(
+            row, name=f"{name} (large leaf)",
+            shape=f"{shape}; not on the main path",
+            **{key: large_leaf[name][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "eager_ms")}))
+    next(k for k in kernels if k["name"] == "wire_agg (large leaf)")[
+        "ms_by_delivered"] = large_leaf["wire_agg"]["ms_by_delivered"]
     replaces = {
         "flash_attention":
             "src/repro/kernels/flash_attention/flash_attention.py:97",
@@ -1407,6 +1763,29 @@ def main() -> None:
     next(k for k in kernels if k["name"] == "flash_attention_bwd")[
         "library_fwd_bwd_ms"] = \
         mesh_stats["flash_attention_bwd"]["library_fwd_bwd_ms"]
+    # this slice: the forward at hd 80 (StableLM-3B's serve prefill; its
+    # launches on that path, and on the depth-2 training round), the
+    # backward at hd 80 (that round) and at hd 256 (no path runs it yet)
+    fa = next(k for k in kernels if k["name"] == "flash_attention")
+    kernels.append(dict(
+        fa, name="flash_attention (hd 80, StableLM-3B serve shape)",
+        shape="bf16 (4, 4096, 32, 80), MHA, causal; runs in the 128 build",
+        launches=hd80_serve_counts["flash_attention"],
+        launches_mesh=hd80_mesh_counts["flash_attention"],
+        cuda_core_ms=None, **hd80_row))
+    bwd = next(k for k in kernels if k["name"] == "flash_attention_bwd")
+    kernels.append(dict(
+        bwd, name="flash_attention_bwd (hd 80, StableLM-3B training shape)",
+        shape="bf16 (2, 2048, 32, 80), MHA, causal; runs in the 128 build",
+        launches=hd80_mesh_counts["flash_attention_bwd"], cuda_core_ms=None,
+        f32_ms=None, library_fwd_bwd_ms=None, **hd_bwd_rows["hd80"]))
+    kernels.append(dict(
+        bwd, name="flash_attention_bwd (hd 256, RecurrentGemma-9B shape)",
+        shape="bf16 (2, 2048, 16, 256), 1 kv head, window 2048",
+        cores="CUDA cores (dkdv_kernel, dq_kernel; eight threads a row)",
+        launches=0, path="none yet: RecurrentGemma-9B training waits for "
+                         "the scan's backward", cuda_core_ms=None,
+        f32_ms=None, library_fwd_bwd_ms=None, **hd_bwd_rows["hd256"]))
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(card, flush=True)

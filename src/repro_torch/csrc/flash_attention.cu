@@ -4,10 +4,15 @@
 //
 // Replaces the Pallas TPU kernel
 // repro/kernels/flash_attention/flash_attention.py:
-//   fwd_tc_kernel (bf16, hd 64/128/256),    <- flash_attention_bh (:97)
-//   flash_attention_kernel (f32; bf16 hd 32)   and its _kernel, with the
+//   fwd_tc_kernel (bf16, hd 40-256),        <- flash_attention_bh (:97)
+//   flash_attention_kernel (f32; bf16 hd <= 32)  and its _kernel, with the
 //                                              GQA repeat and padding of
 //                                              ops.py folded in
+//
+// Head dims: any hd % 8 == 0 up to 256, each in the next built one of 32
+// (CUDA cores only), 64, 128 and 256, its columns from hd on zeros that
+// are never stored (flash_wgmma.cuh, `padded_head_dim`); StableLM-3B's
+// hd 80 runs in the 128 instantiation.
 //
 // Layout: q and out (B, Sq, H, hd), k and v (B, Sk, K, hd), contiguous,
 // f32 or bf16. Query row i has absolute position q_offset + i; key j is
@@ -114,8 +119,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        float* __restrict__ lse, int Sq, int Sk, int H, int K,
-                       int causal, int window, int q_offset, int kv_len,
-                       float scale) {
+                       int hd, int causal, int window, int q_offset,
+                       int kv_len, float scale) {
   constexpr int kChunks = HD / 4;    // 4-float chunks per row
   constexpr int kJ = HD / 16;        // chunks per thread
   extern __shared__ float4 smem[];
@@ -137,8 +142,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_row = (static_cast<size_t>(b) * Sq + row) * H + h;
 #pragma unroll
   for (int j = 0; j < kJ; ++j) {
-    qv[j] = row < Sq ? load4(q + q_row * HD + (part + 4 * j) * 4)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int col = (part + 4 * j) * 4;
+    qv[j] = row < Sq && col < hd ? load4(q + q_row * hd + col)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float4 acc[kJ];
 #pragma unroll
@@ -161,9 +167,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kr = e / kChunks, c4 = e % kChunks;
       const int key = k0 + kr;
       float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (key < Sk) {
+      if (key < Sk && c4 * 4 < hd) {
         const size_t off =
-            ((static_cast<size_t>(b) * Sk + key) * K + kh) * HD + c4 * 4;
+            ((static_cast<size_t>(b) * Sk + key) * K + kh) * hd + c4 * 4;
         kk = load4(k + off);
         vv = load4(v + off);
       }
@@ -241,9 +247,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l_run, 1e-30f);
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
+      const int col = (part + 4 * j) * 4;
       const float4 o = make_float4(acc[j].x / den, acc[j].y / den,
                                    acc[j].z / den, acc[j].w / den);
-      store4(out + q_row * HD + (part + 4 * j) * 4, o);
+      if (col < hd) store4(out + q_row * hd + col, o);
     }
     // the row's log-sum-exp of the scaled scores, for the backward
     // (-inf for a row with no valid key)
@@ -256,8 +263,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int B, int Sq, int Sk, int H, int K, int causal, int window,
-           int q_offset, int kv_len, float scale, cudaStream_t s) {
+           int B, int Sq, int Sk, int H, int K, int hd, int causal,
+           int window, int q_offset, int kv_len, float scale,
+           cudaStream_t s) {
   constexpr int smem = 2 * kBlockK * HD * static_cast<int>(sizeof(float));
   // opt in to more than 48 KiB of dynamic shared memory once, before the
   // first launch (outside any CUDA-graph capture that follows it)
@@ -273,7 +281,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   flash_attention_kernel<T, HD><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), Sq, Sk, H, K, causal, window, q_offset,
+      static_cast<float*>(lse), Sq, Sk, H, K, hd, causal, window, q_offset,
       kv_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -283,21 +291,20 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
              void* lse, int B, int Sq, int Sk, int H, int K, int causal,
              int window, int q_offset, int kv_len, float scale,
              cudaStream_t s) {
-  switch (hd) {
+  if (!fa_tc::head_dim_ok(hd)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (fa_tc::padded_head_dim(hd)) {
     case 32:
-      return launch<T, 32>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+      return launch<T, 32>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,
                            window, q_offset, kv_len, scale, s);
     case 64:
-      return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+      return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,
                            window, q_offset, kv_len, scale, s);
     case 128:
-      return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
-                            window, q_offset, kv_len, scale, s);
-    case 256:
-      return launch<T, 256>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+      return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,
                             window, q_offset, kv_len, scale, s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch<T, 256>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,
+                            window, q_offset, kv_len, scale, s);
   }
 }
 
@@ -327,7 +334,7 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv,
               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-              int Sq, int Sk, int H, int K, int causal, int window,
+              int Sq, int Sk, int H, int K, int hd, int causal, int window,
               int q_offset, int kv_len, float scale) {
   using namespace fa_tc;
   using L = FwdTc<HD>;
@@ -490,11 +497,12 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       if (row >= Sq) continue;
       const float den = fmaxf(l[r], 1e-30f);
       const size_t q_row = (static_cast<size_t>(b) * Sq + row) * H + h;
-      __nv_bfloat16* orow = out + q_row * HD + half * NC;
+      __nv_bfloat16* orow = out + q_row * hd + half * NC;
 #pragma unroll
       for (int j = 0; j < NC / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * (tid & 3)) =
-            pack_bf16(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
+        if (half * NC + 8 * j < hd)     // not a padded column group
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * (tid & 3)) =
+              pack_bf16(o[4 * j + 2 * r] / den, o[4 * j + 2 * r + 1] / den);
       }
       // the row's log-sum-exp, for the backward (-inf: no valid key)
       if (lse != nullptr && half == 0 && (tid & 3) == 0) {
@@ -507,14 +515,14 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
-              void* lse, int B, int Sq, int Sk, int H, int K, int causal,
-              int window, int q_offset, int kv_len, float scale,
+              void* lse, int B, int Sq, int Sk, int H, int K, int hd,
+              int causal, int window, int q_offset, int kv_len, float scale,
               cudaStream_t s) {
   using L = FwdTc<HD>;
   CUtensorMap tq, tk, tv;
-  int e = fa_tc::make_map(&tq, q, HD, H, Sq, B);
-  if (e == 0) e = fa_tc::make_map(&tk, k, HD, K, Sk, B);
-  if (e == 0) e = fa_tc::make_map(&tv, v, HD, K, Sk, B);
+  int e = fa_tc::make_map(&tq, q, hd, H, Sq, B);
+  if (e == 0) e = fa_tc::make_map(&tk, k, hd, K, Sk, B);
+  if (e == 0) e = fa_tc::make_map(&tv, v, hd, K, Sk, B);
   if (e != 0) return e;
   // opt in to the dynamic shared memory once, before the first launch
   // (outside any CUDA-graph capture that follows it)
@@ -529,15 +537,16 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   const dim3 grid(H, B, (Sq + L::kRows - 1) / L::kRows);
   fwd_tc_kernel<HD><<<grid, kTcThreads, L::kSmem, s>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
-      Sq, Sk, H, K, causal, window, q_offset, kv_len, scale);
+      Sq, Sk, H, K, hd, causal, window, q_offset, kv_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Head dims this kernel is built for; the wrapper raises on others.
+// Head dims with a launch (hd % 8 == 0, up to 256; each runs in the
+// next built one, flash_wgmma.cuh); the wrapper raises on others.
 extern "C" int fa_supports_head_dim(int hd) {
-  return hd == 32 || hd == 64 || hd == 128 || hd == 256;
+  return fa_tc::head_dim_ok(hd);
 }
 
 // dtype: 0 f32, 1 bf16. lse: null, or a (B, H, Sq) f32 buffer that gets
@@ -558,10 +567,11 @@ extern "C" int fa_flash_attention(const void* q, const void* k, const void* v,
                          window, q_offset, kv_len, scale, s);
 }
 
-// Head dims the tensor-core kernel is built for (bf16 only); the wrapper
-// routes other bf16 head dims and f32 to fa_flash_attention.
+// Head dims the tensor-core kernel takes (bf16 only): those that run in
+// its 64, 128 or 256 instantiation. The wrapper routes other bf16 head
+// dims (hd <= 32) and f32 to fa_flash_attention.
 extern "C" int fa_tc_supports_head_dim(int hd) {
-  return hd == 64 || hd == 128 || hd == 256;
+  return fa_tc::head_dim_ok(hd) && hd > 32;
 }
 
 // The bf16 tensor-core forward: q, k, v, out bf16 with 16-byte aligned
@@ -575,17 +585,17 @@ extern "C" int fa_flash_attention_tc(const void* q, const void* k,
                                      int q_offset, int kv_len, float scale,
                                      void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
+  if (!fa_tc_supports_head_dim(hd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (fa_tc::padded_head_dim(hd)) {
     case 64:
-      return launch_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+      return launch_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,
                            window, q_offset, kv_len, scale, s);
     case 128:
-      return launch_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
-                            window, q_offset, kv_len, scale, s);
-    case 256:
-      return launch_tc<256>(q, k, v, out, lse, B, Sq, Sk, H, K, causal,
+      return launch_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,
                             window, q_offset, kv_len, scale, s);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_tc<256>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,
+                            window, q_offset, kv_len, scale, s);
   }
 }

@@ -34,7 +34,14 @@
 // at SmolLM-360M's training shape (B 2, H 15 over 5, hd 64, S 2048,
 // causal; 6.29e7 pairs) 0.041 ms.
 //
-// The bf16 kernels (dkdv_tc_kernel, dq_tc_kernel; hd 64 and 128) run
+// Head dims: any hd % 8 == 0 up to 256, each in the next built one of
+// 32, 64, 128 (both routes) and 256 (the CUDA-core kernels only), its
+// columns from hd on zeros that are never stored (flash_wgmma.cuh,
+// `padded_head_dim`): StableLM-3B's hd 80 runs in the tensor-core
+// kernels' 128 instantiation, RecurrentGemma-9B's hd 256 in the CUDA-core
+// kernels.
+//
+// The bf16 kernels (dkdv_tc_kernel, dq_tc_kernel; hd 40-128) run
 // all products on the tensor cores (wgmma, flash_wgmma.cuh) and issue
 // 20 hd operations a pair, not 10 hd: 12 hd in dkdv (S^T, dP^T, then dV
 // and dK in two terms each; 16 hd at hd 128, below) and 8 hd in dq (S
@@ -80,11 +87,17 @@
 // - The mask only on tiles where some pair is invalid (rows past Sq
 //   included); elsewhere p needs no select.
 //
-// The f32 kernels (dkdv_kernel, dq_kernel; also bf16 at hd 32) run on
-// the CUDA cores in f32: four threads share a key row (dkdv) or a query
-// row (dq), each holding an interleaved quarter of hd in registers;
-// dot products are the sum of the four quarters (two xor shuffles);
-// query or kv tiles are staged in shared memory as f32.
+// The f32 kernels (dkdv_kernel, dq_kernel; also bf16 at hd <= 32 and
+// 136-256) run on the CUDA cores in f32: four threads share a key row
+// (dkdv) or a query row (dq), each holding an interleaved quarter of hd
+// in registers; dot products are the sum of the four quarters (two xor
+// shuffles); query or kv tiles are staged in shared memory as f32. At
+// hd 256 eight threads share a row (`F32Bwd`): a quarter of k, v, dk
+// and dv would take 256 registers a thread. The tensor-core kernels'
+// hd-256 backward would keep 64 x 128 of dK and of dV a consumer plus a
+// fresh per-tile partial, past the 240 registers a consumer has; no
+// model path trains at hd 256 yet (RecurrentGemma-9B's training waits
+// for the scan's backward), so the CUDA-core kernels carry it.
 // Build without --use_fast_math (expf).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,10 +108,24 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRows = 64;     // key rows (dkdv) or query rows (dq) a block
-constexpr int kTileQ = 32;    // query rows per staged tile (dkdv)
 constexpr int kTileK = 16;    // keys per staged tile (dq): s and dp of a
                               // tile stay in registers without spills
+
+// The CUDA-core kernels' split of a row over threads. Up to hd 128 four
+// threads share a key row (dkdv) or a query row (dq), 64 rows a block,
+// each holding an interleaved quarter of hd as float4s; dkdv keeps k,
+// v, dk and dv of its quarter in registers (16 hd / 4 floats a thread).
+// At hd 256 that is 256 registers, past the 255 a thread may have, so
+// eight threads share a row (32 rows a block; 128 floats a thread) and
+// a staged query tile has 16 rows, so that q and dO tiles stay within
+// the 48 KiB of static shared memory.
+template <int HD>
+struct F32Bwd {
+  static constexpr int kParts = HD == 256 ? 8 : 4;   // threads a row
+  static constexpr int kRows = kThreads / kParts;    // rows a block
+  static constexpr int kJ = HD / (4 * kParts);       // float4s a thread
+  static constexpr int kTileQ = HD == 256 ? 16 : 32; // query rows a tile
+};
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -140,11 +167,14 @@ __device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
   y.w = fmaf(a, x.w, y.w);
 }
 
-// the sum of the four quarter dot products of a row (the same value in
-// all four threads)
-__device__ __forceinline__ float quad_sum(float x) {
+// the sum of the P parts' dot products of a row (the same value in all
+// P threads)
+template <int P>
+__device__ __forceinline__ float part_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  if (P == 8) x += __shfl_xor_sync(0xffffffffu, x, 4);
+  return x;
 }
 
 __device__ __forceinline__ bool pair_ok(int key, int q_pos, int Sk,
@@ -156,16 +186,16 @@ __device__ __forceinline__ bool pair_ok(int key, int q_pos, int Sk,
 }
 
 // 1. dsum[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d], one warp a row
-template <typename T, int HD>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-           float* __restrict__ dsum, int B, int Sq, int H) {
+           float* __restrict__ dsum, int B, int Sq, int H, int hd) {
   const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= B * Sq * H) return;     // whole warps leave together
-  const size_t off = static_cast<size_t>(warp) * HD;
+  const size_t off = static_cast<size_t>(warp) * hd;
   float acc = 0.f;
-  for (int dd = lane * 4; dd < HD; dd += 128)
+  for (int dd = lane * 4; dd < hd; dd += 128)
     acc = dot4(load4(dout + off + dd), load4(o + off + dd), acc);
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1)
@@ -183,18 +213,20 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ dsum,
             T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk, int H,
-            int K, int causal, int window, int q_offset, int kv_len,
+            int K, int hd, int causal, int window, int q_offset, int kv_len,
             float scale) {
+  using L = F32Bwd<HD>;
   constexpr int kChunks = HD / 4;
-  constexpr int kJ = HD / 16;
+  constexpr int kJ = L::kJ, kP = L::kParts, kRows = L::kRows;
+  constexpr int kTileQ = L::kTileQ;
   __shared__ __align__(16) float qs[kTileQ * HD];
   __shared__ __align__(16) float dos[kTileQ * HD];
   __shared__ float lse_s[kTileQ];
   __shared__ float dsum_s[kTileQ];
 
   const int tid = threadIdx.x;
-  const int r = tid >> 2;
-  const int part = tid & 3;
+  const int r = tid / kP;
+  const int part = tid % kP;
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / K;
@@ -205,11 +237,12 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t kv_row = (static_cast<size_t>(b) * Sk + key) * K + kh;
 #pragma unroll
   for (int j = 0; j < kJ; ++j) {
-    const int col = (part + 4 * j) * 4;
-    kv[j] = key < Sk ? load4(k + kv_row * HD + col)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-    vv[j] = key < Sk ? load4(v + kv_row * HD + col)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int col = (part + kP * j) * 4;
+    const bool in = key < Sk && col < hd;
+    kv[j] = in ? load4(k + kv_row * hd + col)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+    vv[j] = in ? load4(v + kv_row * hd + col)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
     dk_acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
     dv_acc[j] = dk_acc[j];
   }
@@ -231,9 +264,9 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qr = e / kChunks, c4 = e % kChunks;
         const int row = i0 + qr;
         float4 qq = make_float4(0.f, 0.f, 0.f, 0.f), dd = qq;
-        if (row < Sq) {
+        if (row < Sq && c4 * 4 < hd) {
           const size_t off =
-              ((static_cast<size_t>(b) * Sq + row) * H + h) * HD + c4 * 4;
+              ((static_cast<size_t>(b) * Sq + row) * H + h) * hd + c4 * 4;
           qq = load4(q + off);
           dd = load4(dout + off);
         }
@@ -255,17 +288,17 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s = 0.f, dp = 0.f;
 #pragma unroll
         for (int j = 0; j < kJ; ++j) {
-          const int col = (part + 4 * j) * 4;
+          const int col = (part + kP * j) * 4;
           s = dot4(load4(qs + c * HD + col), kv[j], s);
           dp = dot4(load4(dos + c * HD + col), vv[j], dp);
         }
-        s = quad_sum(s);
-        dp = quad_sum(dp);
+        s = part_sum<kP>(s);
+        dp = part_sum<kP>(dp);
         const float p = ok ? expf(s * scale - lse_s[c]) : 0.f;
         const float ds = p * (dp - dsum_s[c]);
 #pragma unroll
         for (int j = 0; j < kJ; ++j) {
-          const int col = (part + 4 * j) * 4;
+          const int col = (part + kP * j) * 4;
           axpy4(p, load4(dos + c * HD + col), dv_acc[j]);
           axpy4(ds, load4(qs + c * HD + col), dk_acc[j]);
         }
@@ -276,32 +309,34 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (key < Sk) {
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
-      const int col = (part + 4 * j) * 4;
+      const int col = (part + kP * j) * 4;
+      if (col >= hd) continue;          // a padded column
       const float4 a = dk_acc[j];
-      store4(dk + kv_row * HD + col,
+      store4(dk + kv_row * hd + col,
              make_float4(a.x * scale, a.y * scale, a.z * scale,
                          a.w * scale));
-      store4(dv + kv_row * HD + col, dv_acc[j]);
+      store4(dv + kv_row * hd + col, dv_acc[j]);
     }
   }
 }
 
-// 3. dQ for 64 query rows of one head
+// 3. dQ for 64 (32 at hd 256) query rows of one head
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
           const float* __restrict__ lse, const float* __restrict__ dsum,
-          T* __restrict__ dq, int Sq, int Sk, int H, int K, int causal,
-          int window, int q_offset, int kv_len, float scale) {
+          T* __restrict__ dq, int Sq, int Sk, int H, int K, int hd,
+          int causal, int window, int q_offset, int kv_len, float scale) {
+  using L = F32Bwd<HD>;
   constexpr int kChunks = HD / 4;
-  constexpr int kJ = HD / 16;
+  constexpr int kJ = L::kJ, kP = L::kParts, kRows = L::kRows;
   __shared__ __align__(16) float ks[kTileK * HD];
   __shared__ __align__(16) float vs[kTileK * HD];
 
   const int tid = threadIdx.x;
-  const int r = tid >> 2;
-  const int part = tid & 3;
+  const int r = tid / kP;
+  const int part = tid % kP;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / K);
@@ -313,11 +348,12 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t q_row = (static_cast<size_t>(b) * Sq + row) * H + h;
 #pragma unroll
   for (int j = 0; j < kJ; ++j) {
-    const int col = (part + 4 * j) * 4;
-    qv[j] = row < Sq ? load4(q + q_row * HD + col)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-    dov[j] = row < Sq ? load4(dout + q_row * HD + col)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    const int col = (part + kP * j) * 4;
+    const bool in = row < Sq && col < hd;
+    qv[j] = in ? load4(q + q_row * hd + col)
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+    dov[j] = in ? load4(dout + q_row * hd + col)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
     dq_acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const size_t stat = (static_cast<size_t>(b) * H + h) * Sq + row;
@@ -340,9 +376,9 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kr = e / kChunks, c4 = e % kChunks;
       const int kk = k0 + kr;
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f), bb = a;
-      if (kk < Sk) {
+      if (kk < Sk && c4 * 4 < hd) {
         const size_t off =
-            ((static_cast<size_t>(b) * Sk + kk) * K + kh) * HD + c4 * 4;
+            ((static_cast<size_t>(b) * Sk + kk) * K + kh) * hd + c4 * 4;
         a = load4(k + off);
         bb = load4(v + off);
       }
@@ -359,7 +395,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
-      const int col = (part + 4 * j) * 4;
+      const int col = (part + kP * j) * 4;
 #pragma unroll
       for (int c = 0; c < kTileK; ++c) {
         s[c] = dot4(qv[j], load4(ks + c * HD + col), s[c]);
@@ -368,8 +404,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int c = 0; c < kTileK; ++c) {
-      s[c] = quad_sum(s[c]);
-      dp[c] = quad_sum(dp[c]);
+      s[c] = part_sum<kP>(s[c]);
+      dp[c] = part_sum<kP>(dp[c]);
     }
 #pragma unroll
     for (int c = 0; c < kTileK; ++c) {
@@ -379,15 +415,17 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float ds = p * (dp[c] - row_dsum);
 #pragma unroll
       for (int j = 0; j < kJ; ++j)
-        axpy4(ds, load4(ks + c * HD + (part + 4 * j) * 4), dq_acc[j]);
+        axpy4(ds, load4(ks + c * HD + (part + kP * j) * 4), dq_acc[j]);
     }
   }
 
   if (row < Sq) {
 #pragma unroll
     for (int j = 0; j < kJ; ++j) {
+      const int col = (part + kP * j) * 4;
+      if (col >= hd) continue;          // a padded column
       const float4 a = dq_acc[j];
-      store4(dq + q_row * HD + (part + 4 * j) * 4,
+      store4(dq + q_row * hd + col,
              make_float4(a.x * scale, a.y * scale, a.z * scale,
                          a.w * scale));
     }
@@ -397,9 +435,10 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dsum, void* dq, void* dk,
-           void* dv, int B, int Sq, int Sk, int H, int K, int causal,
+           void* dv, int B, int Sq, int Sk, int H, int K, int hd, int causal,
            int window, int q_offset, int kv_len, float scale,
            cudaStream_t s) {
+  constexpr int kRows = F32Bwd<HD>::kRows;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -409,19 +448,19 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const long long rows = static_cast<long long>(B) * Sq * H;
   const unsigned dot_blocks =
       static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
-  dot_kernel<T, HD><<<dot_blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(o), dot, ds, B, Sq, H);
+  dot_kernel<T><<<dot_blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(o), dot, ds, B, Sq, H, hd);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 kv_grid((Sk + kRows - 1) / kRows, K, B);
   dkdv_kernel<T, HD><<<kv_grid, kThreads, 0, s>>>(
       qt, kt, vt, dot, l, ds, static_cast<T*>(dk), static_cast<T*>(dv), Sq,
-      Sk, H, K, causal, window, q_offset, kv_len, scale);
+      Sk, H, K, hd, causal, window, q_offset, kv_len, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 q_grid((Sq + kRows - 1) / kRows, H, B);
   dq_kernel<T, HD><<<q_grid, kThreads, 0, s>>>(
-      qt, kt, vt, dot, l, ds, static_cast<T*>(dq), Sq, Sk, H, K, causal,
+      qt, kt, vt, dot, l, ds, static_cast<T*>(dq), Sq, Sk, H, K, hd, causal,
       window, q_offset, kv_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -432,21 +471,24 @@ int dispatch(int hd, const void* q, const void* k, const void* v,
              void* dq, void* dk, void* dv, int B, int Sq, int Sk, int H,
              int K, int causal, int window, int q_offset, int kv_len,
              float scale, cudaStream_t s) {
-  switch (hd) {
+  if (!fa_tc::head_dim_ok(hd)) return static_cast<int>(cudaErrorInvalidValue);
+  switch (fa_tc::padded_head_dim(hd)) {
     case 32:
       return launch<T, 32>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, Sq,
-                           Sk, H, K, causal, window, q_offset, kv_len, scale,
-                           s);
+                           Sk, H, K, hd, causal, window, q_offset, kv_len,
+                           scale, s);
     case 64:
       return launch<T, 64>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, Sq,
-                           Sk, H, K, causal, window, q_offset, kv_len, scale,
-                           s);
+                           Sk, H, K, hd, causal, window, q_offset, kv_len,
+                           scale, s);
     case 128:
       return launch<T, 128>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, Sq,
-                            Sk, H, K, causal, window, q_offset, kv_len,
+                            Sk, H, K, hd, causal, window, q_offset, kv_len,
                             scale, s);
-    default:   // the wrapper raises first (fa_bwd_supports_head_dim)
-      return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return launch<T, 256>(q, k, v, o, dout, lse, dsum, dq, dk, dv, B, Sq,
+                            Sk, H, K, hd, causal, window, q_offset, kv_len,
+                            scale, s);
   }
 }
 
@@ -476,12 +518,12 @@ struct BwdTc {
 
 // 1. dsum and lse, each into a (B, H, Sqp) f32 buffer, zeros past Sq;
 // one warp a row
-template <int HD>
 __global__ void __launch_bounds__(kThreads)
 prep_tc_kernel(const __nv_bfloat16* __restrict__ o,
                const __nv_bfloat16* __restrict__ dout,
                const float* __restrict__ lse, float* __restrict__ dsum_p,
-               float* __restrict__ lse_p, int B, int Sq, int Sqp, int H) {
+               float* __restrict__ lse_p, int B, int Sq, int Sqp, int H,
+               int hd) {
   const int warp = (blockIdx.x * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (warp >= B * H * Sqp) return;     // whole warps leave together
@@ -489,8 +531,8 @@ prep_tc_kernel(const __nv_bfloat16* __restrict__ o,
   const int h = bh % H, b = bh / H;
   float acc = 0.f;
   if (i < Sq) {
-    const size_t off = ((static_cast<size_t>(b) * Sq + i) * H + h) * HD;
-    for (int dd = lane * 4; dd < HD; dd += 128)
+    const size_t off = ((static_cast<size_t>(b) * Sq + i) * H + h) * hd;
+    for (int dd = lane * 4; dd < hd; dd += 128)
       acc = dot4(load4(dout + off + dd), load4(o + off + dd), acc);
   }
 #pragma unroll
@@ -512,8 +554,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                const float* __restrict__ lse_p,
                const float* __restrict__ dsum_p,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-               int Sq, int Sqp, int Sk, int H, int K, int causal, int window,
-               int q_offset, int kv_len, float scale) {
+               int Sq, int Sqp, int Sk, int H, int K, int hd, int causal,
+               int window, int q_offset, int kv_len, float scale) {
   using namespace fa_tc;
   using L = BwdTc<HD>;
   constexpr int NC = L::kCols;
@@ -697,9 +739,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int key = ka + 8 * r;
       if (key >= Sk) continue;
       const size_t off =
-          ((static_cast<size_t>(b) * Sk + key) * K + kh) * HD + half * NC;
+          ((static_cast<size_t>(b) * Sk + key) * K + kh) * hd + half * NC;
 #pragma unroll
       for (int j = 0; j < NC / 8; ++j) {
+        if (half * NC + 8 * j >= hd) continue;   // a padded column group
         const int col = 8 * j + 2 * (tid & 3);
         *reinterpret_cast<uint32_t*>(dk + off + col) =
             pack_bf16(dk_acc[4 * j + 2 * r] * scale,
@@ -720,8 +763,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tdo,
              const float* __restrict__ lse_p,
              const float* __restrict__ dsum_p, __nv_bfloat16* __restrict__ dq,
-             int Sq, int Sqp, int Sk, int H, int K, int causal, int window,
-             int q_offset, int kv_len, float scale) {
+             int Sq, int Sqp, int Sk, int H, int K, int hd, int causal,
+             int window, int q_offset, int kv_len, float scale) {
   using namespace fa_tc;
   using L = BwdTc<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -866,12 +909,13 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = ra + 8 * r;
       if (row >= Sq) continue;
       __nv_bfloat16* drow =
-          dq + ((static_cast<size_t>(b) * Sq + row) * H + h) * HD;
+          dq + ((static_cast<size_t>(b) * Sq + row) * H + h) * hd;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(drow + 8 * j + 2 * (tid & 3)) =
-            pack_bf16(dq_acc[4 * j + 2 * r] * scale,
-                      dq_acc[4 * j + 2 * r + 1] * scale);
+        if (8 * j < hd)                 // not a padded column group
+          *reinterpret_cast<uint32_t*>(drow + 8 * j + 2 * (tid & 3)) =
+              pack_bf16(dq_acc[4 * j + 2 * r] * scale,
+                        dq_acc[4 * j + 2 * r + 1] * scale);
       }
     }
   }
@@ -881,17 +925,17 @@ template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* scratch, void* dq,
               void* dk, void* dv, int B, int Sq, int Sk, int H, int K,
-              int causal, int window, int q_offset, int kv_len, float scale,
-              cudaStream_t s) {
+              int hd, int causal, int window, int q_offset, int kv_len,
+              float scale, cudaStream_t s) {
   using L = BwdTc<HD>;
   const int Sqp = (Sq + kTcStep - 1) / kTcStep * kTcStep;
   float* dsum_p = static_cast<float*>(scratch);
   float* lse_p = dsum_p + static_cast<size_t>(B) * H * Sqp;
   CUtensorMap tq, tk, tv, tdo;
-  int e = fa_tc::make_map(&tq, q, HD, H, Sq, B);
-  if (e == 0) e = fa_tc::make_map(&tk, k, HD, K, Sk, B);
-  if (e == 0) e = fa_tc::make_map(&tv, v, HD, K, Sk, B);
-  if (e == 0) e = fa_tc::make_map(&tdo, dout, HD, H, Sq, B);
+  int e = fa_tc::make_map(&tq, q, hd, H, Sq, B);
+  if (e == 0) e = fa_tc::make_map(&tk, k, hd, K, Sk, B);
+  if (e == 0) e = fa_tc::make_map(&tv, v, hd, K, Sk, B);
+  if (e == 0) e = fa_tc::make_map(&tdo, dout, hd, H, Sq, B);
   if (e != 0) return e;
   // opt in to the dynamic shared memory once, before the first launch
   // (outside any CUDA-graph capture that follows it)
@@ -910,32 +954,32 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
   const long long rows = static_cast<long long>(B) * H * Sqp;
   const unsigned prep_blocks =
       static_cast<unsigned>((rows + kThreads / 32 - 1) / (kThreads / 32));
-  prep_tc_kernel<HD><<<prep_blocks, kThreads, 0, s>>>(
+  prep_tc_kernel<<<prep_blocks, kThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), dsum_p, lse_p, B, Sq, Sqp, H);
+      static_cast<const float*>(lse), dsum_p, lse_p, B, Sq, Sqp, H, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 kv_grid(K, B, (Sk + kTcStep - 1) / kTcStep);
   dkdv_tc_kernel<HD><<<kv_grid, kTcThreads, L::kSmem, s>>>(
       tq, tk, tv, tdo, lse_p, dsum_p, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Sq, Sqp, Sk, H, K, causal, window,
+      static_cast<__nv_bfloat16*>(dv), Sq, Sqp, Sk, H, K, hd, causal, window,
       q_offset, kv_len, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 q_grid(H, B, (Sq + kTcRows - 1) / kTcRows);
   dq_tc_kernel<HD><<<q_grid, kTcThreads, L::kSmem, s>>>(
       tq, tk, tv, tdo, lse_p, dsum_p, static_cast<__nv_bfloat16*>(dq), Sq,
-      Sqp, Sk, H, K, causal, window, q_offset, kv_len, scale);
+      Sqp, Sk, H, K, hd, causal, window, q_offset, kv_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Head dims the backward is built for (the switch above); the wrapper
-// raises on others.
+// Head dims with a launch (hd % 8 == 0, up to 256; each runs in the
+// next built one, flash_wgmma.cuh); the wrapper raises on others.
 extern "C" int fa_bwd_supports_head_dim(int hd) {
-  return hd == 32 || hd == 64 || hd == 128;
+  return fa_tc::head_dim_ok(hd);
 }
 
 // dtype: 0 f32, 1 bf16 (q, k, v, o, dout and the outputs dq, dk, dv);
@@ -957,10 +1001,11 @@ extern "C" int fa_flash_attention_bwd(
                          s);
 }
 
-// Head dims the tensor-core backward is built for (bf16 only); the
-// wrapper routes other bf16 head dims and f32 to fa_flash_attention_bwd.
+// Head dims the tensor-core backward takes (bf16 only): those that run
+// in its 64 or 128 instantiation. The wrapper routes other bf16 head
+// dims (hd <= 32 and 136-256) and f32 to fa_flash_attention_bwd.
 extern "C" int fa_bwd_tc_supports_head_dim(int hd) {
-  return hd == 64 || hd == 128;
+  return fa_tc::head_dim_ok(hd) && hd > 32 && hd <= 128;
 }
 
 // The bf16 tensor-core backward: q, k, v, o, dout and the outputs dq,
@@ -974,16 +1019,12 @@ extern "C" int fa_flash_attention_bwd_tc(
     void* dv, int B, int Sq, int Sk, int H, int K, int hd, int causal,
     int window, int q_offset, int kv_len, float scale, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 64:
-      return launch_tc<64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq,
-                           Sk, H, K, causal, window, q_offset, kv_len, scale,
-                           s);
-    case 128:
-      return launch_tc<128>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
-                            Sq, Sk, H, K, causal, window, q_offset, kv_len,
-                            scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!fa_bwd_tc_supports_head_dim(hd))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (fa_tc::padded_head_dim(hd) == 64)
+    return launch_tc<64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq,
+                         Sk, H, K, hd, causal, window, q_offset, kv_len,
+                         scale, s);
+  return launch_tc<128>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq, Sk,
+                        H, K, hd, causal, window, q_offset, kv_len, scale, s);
 }

@@ -50,6 +50,23 @@ constexpr int kTileRows = 64;                 // rows of a tile, of a box
 constexpr int kBoxBytes = kTileRows * 128;    // one 64 x 64 bf16 box
 constexpr int kRowBytes = 128;                // one swizzled box row
 
+// -- head dims -----------------------------------------------------------
+
+// Both flash sources are built for head dims 32, 64, 128 and 256. Any hd
+// with hd % 8 == 0 (16-byte rows of bf16, as TMA's strides need) up to
+// 256 runs in the next of them, `padded_head_dim`: its columns from hd
+// on read as zeros (the maps' dimension is hd, so TMA fills the rest of
+// a box with zeros; the CUDA-core kernels skip those loads) and are
+// never stored. A zero column adds exact zeros to Q.K^T, dO.V^T and to
+// every output column's sum, so the result is the hd-wide one, with the
+// caller's scale 1/sqrt(hd).
+__host__ __device__ inline bool head_dim_ok(int hd) {
+  return hd > 0 && hd <= 256 && hd % 8 == 0;
+}
+__host__ __device__ inline int padded_head_dim(int hd) {
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+}
+
 // -- TMA ---------------------------------------------------------------
 
 // the hd / 64 boxes of one 64-row tile: rows `row0` .. `row0` + 63 of

@@ -70,6 +70,7 @@ constexpr int kThreads = 256;
 constexpr int kCluster = 8;                         // CTAs a tile
 constexpr int kCtaRows = kBlockRows / kCluster;     // tile rows a CTA
 constexpr int kVecs = kCtaRows * kLanes / 4 / kThreads;  // float4 a thread
+constexpr int kDqThreads = 256;                     // dequant: threads a CTA
 
 template <int BITS> struct Q;
 template <> struct Q<8> {
@@ -260,29 +261,61 @@ quant_pack_kernel(const float* __restrict__ x, const float* __restrict__ r,
   cluster_wait();               // no CTA leaves while its word is read
 }
 
-// One thread per output element of n = blocks * 32768; scales are
-// indexed by the global block (stacked workers are consecutive blocks).
+// Decode, a 2D grid (parts x tiles per worker, C): a CTA of 8 warps
+// takes 1 / parts of one (256, 128) tile of one worker, each warp one
+// 512-byte chunk of the tile's payload. Thread 0 reads the tile's scale
+// once into shared memory. A warp loads its chunk with one 16-byte
+// vector a lane (every payload byte read once), passes it through
+// shared memory so that lane l then holds words l, l + 32, l + 64, l +
+// 96, and stores each word's 4 values (and at int4 its high nibbles' 4,
+// in row r + 128) as one float4: every store instruction writes 512
+// contiguous bytes. No division by the tile size and no grid-stride
+// loop.
 template <int BITS>
-__global__ void __launch_bounds__(kThreads)
-dequant_kernel(const void* __restrict__ packed,
+__global__ void __launch_bounds__(kDqThreads)
+dequant_kernel(const uint8_t* __restrict__ packed,
                const float* __restrict__ scales, float* __restrict__ out,
-               long long n) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const long long b = i / kTile;
-    float q;
-    if (BITS == 8) {
-      q = static_cast<float>(static_cast<const int8_t*>(packed)[i]);
-    } else {
-      const int within = static_cast<int>(i - b * kTile);
-      const int row = within >> 7, col = within & 127;
-      const int byte = static_cast<const uint8_t*>(
-          packed)[b * (kTile / 2) + (row & 127) * kLanes + col];
-      q = static_cast<float>(row < 128 ? (byte & 0xF) - 8 : (byte >> 4) - 8);
+               int nb, int parts) {
+  constexpr int kWarps = kDqThreads / 32;
+  constexpr int kTileBytes = kTile / (BITS == 4 ? 2 : 1);
+  __shared__ float s_scale;
+  __shared__ uint4 xpose[kWarps][32];
+  const int tile = blockIdx.x / parts, part = blockIdx.x % parts;
+  const size_t t = static_cast<size_t>(blockIdx.y) * nb + tile;  // global
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int chunk = part * kWarps + warp;            // its 512 bytes
+  const uint4* src = reinterpret_cast<const uint4*>(packed + t * kTileBytes);
+  float* dst = out + t * kTile;
+  if (threadIdx.x == 0) s_scale = scales[t];
+  xpose[warp][lane] = src[chunk * 32 + lane];
+  __syncthreads();
+  const float sc = s_scale;
+  const uint32_t* x = reinterpret_cast<const uint32_t*>(xpose[warp]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t word = x[32 * i + lane];
+    const int b = chunk * 512 + 128 * i + 4 * lane;   // tile byte
+    float q[4], h[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t byte = (word >> (8 * j)) & 0xFFu;
+      if constexpr (BITS == 8) {
+        q[j] = static_cast<float>(static_cast<int8_t>(byte));
+      } else {
+        q[j] = static_cast<float>(static_cast<int>(byte & 0xF) - 8);
+        h[j] = static_cast<float>(static_cast<int>(byte >> 4) - 8);
+      }
     }
-    out[i] = __fmul_rn(q, scales[b]);
+    // int8: byte b is output b; int4: packed row b / 128 holds output
+    // rows b / 128 (low nibbles) and b / 128 + 128 (high)
+    float* o = dst + (BITS == 8 ? b : (b >> 7) * kLanes + (b & 127));
+    *reinterpret_cast<float4*>(o) =
+        make_float4(__fmul_rn(q[0], sc), __fmul_rn(q[1], sc),
+                    __fmul_rn(q[2], sc), __fmul_rn(q[3], sc));
+    if constexpr (BITS == 4)
+      *reinterpret_cast<float4*>(o + 128 * kLanes) =
+          make_float4(__fmul_rn(h[0], sc), __fmul_rn(h[1], sc),
+                      __fmul_rn(h[2], sc), __fmul_rn(h[3], sc));
   }
 }
 
@@ -326,19 +359,30 @@ extern "C" int qp_quant_pack(const void* x, const void* r, const void* seeds,
   return static_cast<int>(cudaGetLastError());
 }
 
-// packed + scales over `blocks` consecutive (256, 128) blocks -> f32.
+// packed (C, rows, 128) int8 / (C, rows / 2, 128) uint8, 16-byte
+// aligned, + scales (C, rows / 256) -> out (C, rows, 128) f32. The launch
+// plan (threads, CTAs a tile, grid) comes from the wrapper's
+// `_dequant_plan`; one this kernel does not take returns
+// cudaErrorInvalidValue. Returns cudaGetLastError().
 extern "C" int qp_dequant_unpack(const void* packed, const void* scales,
-                                 void* out, long long blocks, int bits,
-                                 void* stream) {
+                                 void* out, int C, int rows, int bits,
+                                 int threads, int parts, int grid_x,
+                                 int grid_y, void* stream) {
+  const int chunks = kTile / (bits == 4 ? 2 : 1) / 512;
+  if ((bits != 8 && bits != 4) || rows < kBlockRows ||
+      rows % kBlockRows != 0 || threads != kDqThreads ||
+      parts * (kDqThreads / 32) != chunks ||
+      grid_x != parts * (rows / kBlockRows) || grid_y != C || C < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const long long n = blocks * kTile;
-  const long long want = (n + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(want < 132 * 64 ? want : 132 * 64);
+  const auto* p = static_cast<const uint8_t*>(packed);
   const auto* sc = static_cast<const float*>(scales);
   auto* o = static_cast<float*>(out);
+  const dim3 grid(grid_x, grid_y);
+  const int nb = rows / kBlockRows;
   if (bits == 8)
-    dequant_kernel<8><<<grid, kThreads, 0, s>>>(packed, sc, o, n);
+    dequant_kernel<8><<<grid, kDqThreads, 0, s>>>(p, sc, o, nb, parts);
   else
-    dequant_kernel<4><<<grid, kThreads, 0, s>>>(packed, sc, o, n);
+    dequant_kernel<4><<<grid, kDqThreads, 0, s>>>(p, sc, o, nb, parts);
   return static_cast<int>(cudaGetLastError());
 }

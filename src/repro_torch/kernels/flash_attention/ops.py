@@ -8,12 +8,20 @@ gradient, csrc/flash_attention_bwd.cu (or raises). The kernels take
 ragged lengths and index kv head h // (H // K), so there is no padding
 and no repeat of k and v.
 
+Head dims: every hd with hd % 8 == 0 up to 256 has a launch. The
+kernels are built for 32, 64, 128 and 256 (`HEAD_DIMS`); another hd runs
+in the next of them (`padded_head_dim`, the wrappers' check; the
+libraries' `fa_supports_head_dim` / `fa_bwd_supports_head_dim` give the
+same answer), its columns from hd on read as zeros inside the kernel
+(TMA fills them; the CUDA-core kernels skip the loads) and never
+stored, with the scale 1/sqrt(hd). No padded copy is made.
+
 On the card the route is chosen by dtype and head dim alone, before the
-launch: bf16 at a head dim the tensor-core kernels are built for (64,
+launch: bf16 at a head dim that runs in a tensor-core instantiation (64,
 128, 256 forward; 64, 128 backward) launches them and counts as
 `flash_attention` / `flash_attention_bwd`; f32, and bf16 at another
-head dim, launches the CUDA-core kernels and counts as
-`flash_attention_f32` / `flash_attention_bwd_f32`.
+head dim (hd <= 32; backward also 136-256), launches the CUDA-core
+kernels and counts as `flash_attention_f32` / `flash_attention_bwd_f32`.
 
 `flash_attention` is differentiable: when a gradient is wanted it runs
 as an autograd Function whose forward also keeps each row's
@@ -36,6 +44,17 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128, 256)        # the kernels' instantiations
+
+
+def padded_head_dim(hd: int) -> int:
+    """The instantiation head dim `hd` runs in: the next of HEAD_DIMS (as
+    csrc/flash_wgmma.cuh `padded_head_dim`). Raises ValueError unless
+    hd % 8 == 0 and 0 < hd <= 256 (TMA's rows are 16-byte multiples)."""
+    if hd <= 0 or hd > HEAD_DIMS[-1] or hd % 8:
+        raise ValueError(f"flash_attention: no kernel for head_dim {hd} "
+                         f"(hd % 8 == 0 and hd <= 256)")
+    return next(d for d in HEAD_DIMS if d >= hd)
 
 
 def _lib() -> ctypes.CDLL:
@@ -109,9 +128,8 @@ def _forward(q, k, v, causal, window, q_offset, kv_len, want_lse: bool):
                                  return_lse=True)
         return out, (lse if want_lse else None)
     _require_cuda(q, "flash_attention")
+    padded_head_dim(hd)                   # raises on a head dim with no launch
     lib = _lib()
-    if not lib.fa_supports_head_dim(hd):
-        raise ValueError(f"flash_attention: no kernel for head_dim {hd}")
     tc = q.dtype == torch.bfloat16 and bool(lib.fa_tc_supports_head_dim(hd))
     _check(q.device, q.dtype, {"q": (q, (B, Sq, H, hd)),
                                "k": (k, (B, Sk, K, hd)),
@@ -135,11 +153,13 @@ def _forward(q, k, v, causal, window, q_offset, kv_len, want_lse: bool):
 
 
 def require_bwd_head_dim(hd: int) -> None:
-    """Raise on a head dim the backward kernel is not built for, as its
-    library says."""
+    """Raise on a head dim the backward kernels have no launch for: the
+    forward's rule (`padded_head_dim`), and what their library says it
+    is built for."""
+    padded_head_dim(hd)
     if not _bwd_lib().fa_bwd_supports_head_dim(hd):
         raise ValueError(f"flash_attention backward: no kernel for "
-                         f"head_dim {hd}")
+                         f"head_dim {hd} (hd % 8 == 0 and hd <= 256)")
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -40,11 +40,13 @@ def _heads_f32(q, k, v):
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0, q_offset: int = 0,
-                  kv_len: Optional[int] = None, return_lse: bool = False):
+                  kv_len: Optional[int] = None, return_lse: bool = False,
+                  scale: Optional[float] = None):
     """q: (B, Sq, H, hd); k, v: (B, Sk, K, hd) with H % K == 0. Scores,
     softmax and P.V in f32; returns (B, Sq, H, hd) in q's dtype, and
     with `return_lse` also the (B, H, Sq) f32 log-sum-exp of each row's
-    scaled scores (-inf for a row with no valid key)."""
+    scaled scores (-inf for a row with no valid key). The scores' scale
+    is `scale`, by default 1/sqrt(hd)."""
     Sq, hd = q.shape[1], q.shape[3]
     Sk = k.shape[1]
     qf, kf, vf = _heads_f32(q, k, v)
@@ -52,7 +54,9 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           q_offset=q_offset,
                           kv_len=Sk if kv_len is None else kv_len,
                           device=q.device)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     s.masked_fill_(~mask, -math.inf)
     lse = torch.logsumexp(s, dim=-1) if return_lse else None
     p = torch.softmax(s, dim=-1)
@@ -68,16 +72,19 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, dout: torch.Tensor,
                       lse: torch.Tensor, *, causal: bool = True,
                       window: int = 0, q_offset: int = 0,
-                      kv_len: Optional[int] = None
+                      kv_len: Optional[int] = None,
+                      scale: Optional[float] = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of `attention_ref` from its output `out`,
     the output gradient `dout` and the forward's (B, H, Sq) log-sum-exp,
     in f32, returned in q's dtype; dk and dv are summed over the query
-    heads that share a kv head. A row with no valid key gets 0."""
+    heads that share a kv head. A row with no valid key gets 0. `scale`
+    as the forward's, by default 1/sqrt(hd)."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     f32 = torch.float32
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     qf, kf, vf = _heads_f32(q, k, v)
     mask = attention_mask(Sq, Sk, causal=causal, window=window,
                           q_offset=q_offset,

@@ -12,7 +12,9 @@ versions in ref.py, CUDA tensors launch the kernel (or raise).
 
 The quantize-pack launch is `_plan`'s: each (256, 128) tile and worker
 is split over a cluster of 8 CTAs, each owning 32 of the tile's rows
-(which rows is the kernel's `vec_index`).
+(which rows is the kernel's `vec_index`). The decode's is
+`_dequant_plan`'s: a 2D grid over (tile parts, worker), each warp one
+512-byte payload chunk, 16 bytes a lane.
 """
 from __future__ import annotations
 
@@ -31,6 +33,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 CLUSTER = 8               # CTAs a tile (the portable cluster size)
+DQ_THREADS = 256          # dequant_kernel's threads a CTA (kDqThreads)
+DQ_CHUNK = 512            # payload bytes a warp decodes, 16 a lane
 
 
 @dataclass(frozen=True)
@@ -55,13 +59,30 @@ def _plan(C: int, rows: int, bits: int) -> PackPlan:
                     (CLUSTER * (rows // BLOCK_ROWS), C))
 
 
+@dataclass(frozen=True)
+class DequantPlan:
+    threads: int          # threads a CTA
+    parts: int            # CTAs a (256, 128) tile
+    grid: tuple[int, int]  # (parts x tiles per worker leaf, C)
+
+
+def _dequant_plan(C: int, rows: int, bits: int) -> DequantPlan:
+    """The launch of dequant_kernel for (C, rows, 128) outputs: a tile's
+    payload (32 KiB int8, 16 KiB int4) in 512-byte chunks, one a warp,
+    8 warps a CTA (8 CTAs a tile at int8, 4 at int4). Raises ValueError
+    on what the kernel or the card does not take."""
+    _plan(C, rows, bits)                  # the same shape rules
+    chunks = BLOCK_ROWS * LANES // (8 // bits) // DQ_CHUNK
+    parts = chunks // (DQ_THREADS // 32)
+    return DequantPlan(DQ_THREADS, parts, (parts * (rows // BLOCK_ROWS), C))
+
+
 def _lib() -> ctypes.CDLL:
     lib = runtime.library("quant_pack")
     if lib.qp_quant_pack.argtypes is None:
         lib.qp_quant_pack.argtypes = [_P] * 6 + [_I] * 7 + [_P]
         lib.qp_quant_pack.restype = _I
-        lib.qp_dequant_unpack.argtypes = [_P, _P, _P, ctypes.c_longlong, _I,
-                                          _P]
+        lib.qp_dequant_unpack.argtypes = [_P, _P, _P] + [_I] * 7 + [_P]
         lib.qp_dequant_unpack.restype = _I
     return lib
 
@@ -140,15 +161,19 @@ def dequant_unpack_2d(packed: torch.Tensor, scales: torch.Tensor, *,
     if lanes != LANES or rows % BLOCK_ROWS:
         raise ValueError(f"dequant_unpack: bad packed shape "
                          f"{tuple(packed.shape)}")
+    plan = _dequant_plan(C, rows, bits)
     dev = packed.device
     runtime.require(packed, torch.int8 if bits == 8 else torch.uint8,
                     (C, prow, LANES), "dequant_unpack packed", dev)
     runtime.require(scales, torch.float32, (C, rows // BLOCK_ROWS),
                     "dequant_unpack scales", dev)
+    if packed.data_ptr() % 16:
+        raise ValueError("dequant_unpack packed: not 16-byte aligned")
     out = torch.empty((C, rows, LANES), dtype=torch.float32, device=dev)
     err = _lib().qp_dequant_unpack(packed.data_ptr(), scales.data_ptr(),
-                                   out.data_ptr(), C * (rows // BLOCK_ROWS),
-                                   bits, runtime.stream_ptr(packed))
+                                   out.data_ptr(), C, rows, bits,
+                                   plan.threads, plan.parts, *plan.grid,
+                                   runtime.stream_ptr(packed))
     runtime.check(err, "dequant_unpack")
     runtime.note_launch("dequant_unpack")
     return out

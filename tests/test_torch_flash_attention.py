@@ -113,6 +113,22 @@ def test_mask_matches_kernel_rule():
     np.testing.assert_array_equal(m.numpy(), want)
 
 
+@pytest.mark.parametrize("hd,built", [(8, 32), (32, 32), (40, 64),
+                                      (64, 64), (80, 128), (96, 128),
+                                      (128, 128), (136, 256), (200, 256),
+                                      (256, 256)])
+def test_padded_head_dim(hd, built):
+    """Every hd % 8 == 0 up to 256 runs in the next built head dim (as
+    csrc/flash_wgmma.cuh `padded_head_dim`); nothing else has a kernel."""
+    assert ops.padded_head_dim(hd) == built
+
+
+@pytest.mark.parametrize("hd", [0, 4, 84, 260, 512])
+def test_head_dim_without_kernel_raises(hd):
+    with pytest.raises(ValueError, match=f"head_dim {hd}"):
+        ops.padded_head_dim(hd)
+
+
 def test_gradient_raises(monkeypatch):
     """A gradient flows on CPU tensors, through the autograd Function's
     plain backward (held to the reference in

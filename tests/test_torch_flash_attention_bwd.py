@@ -10,6 +10,8 @@ Tolerance: GRAD_RTOL x the largest |gradient| of each of dq, dk, dv
 (f32 sums in other orders: XLA's chunked online softmax against the
 port's dense one). Rows with no valid key get exactly zero gradient.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -236,3 +238,74 @@ def test_one_bf16_term_of_p_and_ds_fails_the_rule():
     want = ref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
     got = _emulate_tc_backward(q, k, v, out, do, lse, terms=1, **kw)
     assert all(_misses(a, b) > 100 for a, b in zip(got, want))
+
+
+# -- head dims the kernels are not built for ------------------------------
+#
+# The kernels run hd % 8 == 0 up to 256 in the next built head dim (32,
+# 64, 128, 256; `ops.padded_head_dim`) with the columns past hd zero and
+# the scale 1/sqrt(hd). That padding happens inside the kernels (TMA's
+# zero fill, guarded loads), so it is checked only on the card
+# (chip_smoke.py's hd-80 and hd-256 cases). Here it is written with the
+# plain versions on zero-padded inputs, to show that the zero columns
+# change nothing: the result must be the unpadded answer, and the
+# reference's `chunked_attention` and its gradient, at StableLM-3B's hd
+# 80 and at other head dims that are not built.
+
+
+def _pad(x, hdp):
+    return torch.nn.functional.pad(x, (0, hdp - x.shape[-1]))
+
+
+def _attention_padded(q, k, v, **kw):
+    """q, k, v zero-padded to `padded_head_dim`, the plain forward at the
+    true scale 1/sqrt(hd), the padded output columns dropped."""
+    hd = q.shape[-1]
+    hdp = ops.padded_head_dim(hd)
+    out, lse = ref.attention_ref(_pad(q, hdp), _pad(k, hdp), _pad(v, hdp),
+                                 scale=1.0 / math.sqrt(hd), return_lse=True,
+                                 **kw)
+    return out[..., :hd].contiguous(), lse
+
+
+def _attention_bwd_padded(q, k, v, out, dout, lse, **kw):
+    """Every (.., hd) input zero-padded, the plain backward at the true
+    scale, the padded columns of dq, dk and dv dropped."""
+    hd = q.shape[-1]
+    hdp = ops.padded_head_dim(hd)
+    grads = ref.attention_bwd_ref(
+        *(_pad(x, hdp) for x in (q, k, v, out, dout)), lse,
+        scale=1.0 / math.sqrt(hd), **kw)
+    return tuple(g[..., :hd].contiguous() for g in grads)
+
+
+# (B, Sq, Sk, H, K, hd, causal, window, q_offset)
+PADDED_CASES = {
+    80: (1, 48, 48, 4, 4, 80, True, 0, 0),        # StableLM-3B's head dim
+    40: (2, 40, 64, 4, 2, 40, True, 16, 24),      # windowed, ragged, GQA
+    96: (1, 33, 33, 3, 1, 96, True, 0, 0),
+    200: (1, 40, 40, 2, 1, 200, True, 0, 0),      # runs in the 256 build
+}
+
+
+@pytest.mark.parametrize("hd", sorted(PADDED_CASES))
+def test_padded_head_dim_matches_unpadded_and_jax(hd):
+    B, Sq, Sk, H, K, hd, causal, window, q_offset = PADDED_CASES[hd]
+    assert ops.padded_head_dim(hd) > hd
+    q, k, v, do = _inputs(hd, B, Sq, Sk, H, K, hd)
+    jout, jgrads = _jax_grads(q, k, v, do, H, K, causal, window, q_offset,
+                              None)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out, lse = _attention_padded(tq, tk, tv, **kw)
+    want, want_lse = ref.attention_ref(tq, tk, tv, return_lse=True, **kw)
+    assert out.shape == tq.shape
+    _close(out, want.numpy(), f"hd {hd} forward vs unpadded")
+    _close(out, jout, f"hd {hd} forward vs chunked_attention")
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    grads = _attention_bwd_padded(tq, tk, tv, out, tdo, lse, **kw)
+    plain = ref.attention_bwd_ref(tq, tk, tv, want, tdo, want_lse, **kw)
+    for n, g, p, j in zip("qkv", grads, plain, jgrads):
+        assert g.shape == p.shape
+        _close(g, p.numpy(), f"hd {hd} d{n} vs unpadded")
+        _close(g, j, f"hd {hd} d{n} vs jax.vjp of chunked_attention")

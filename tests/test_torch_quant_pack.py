@@ -275,3 +275,80 @@ def test_cluster_emulation_is_bitwise_the_plain_version(C, rows, bits, ef):
     # would give another scale in most tiles
     nonzero = cta_max.amax(-1) > 0
     assert bool((cta_max.amin(-1) < cta_max.amax(-1))[nonzero].any())
+
+
+# -- the decode's launch plan (kernels/quant_pack/ops.py `_dequant_plan`,
+# csrc/quant_pack.cu dequant_kernel): a 2D grid of (parts x tiles, C)
+# CTAs of 8 warps; warp w of part p of a tile takes the 512-byte
+# payload chunk p * 8 + w, a 16-byte vector a lane, and
+# after the exchange through shared memory lane l stores the values of
+# the chunk's words l, l + 32, l + 64, l + 96 (int4: low nibbles to row
+# r, high to row r + 128)
+
+def _dequant_words(plan, rows):
+    """(worker, tile, first byte within the tile) of every 4-byte word a
+    lane stores, over the whole grid, as the kernel indexes them."""
+    x = torch.arange(plan.grid[0])[:, None, None, None, None]
+    y = torch.arange(plan.grid[1])[None, :, None, None, None]
+    warp = torch.arange(plan.threads // 32)[None, None, :, None, None]
+    i = torch.arange(4)[None, None, None, :, None]
+    lane = torch.arange(32)[None, None, None, None, :]
+    tile, part = x // plan.parts, x % plan.parts
+    chunk = part * (plan.threads // 32) + warp
+    b = chunk * 512 + 128 * i + 4 * lane
+    full = torch.broadcast_tensors(y, tile, b)
+    return [t.reshape(-1) for t in full]
+
+
+def _emulate_dequant(plan, packed, scales, bits):
+    C, prow, _ = packed.shape
+    rows = prow * (2 if bits == 4 else 1)
+    y, tile, b = _dequant_words(plan, rows)
+    tile_bytes = 256 * 128 // (8 // bits)
+    j = torch.arange(4)
+    src = packed.view(torch.uint8).reshape(C, -1)[
+        y[:, None], tile[:, None] * tile_bytes + b[:, None] + j]
+    sc = scales[y, tile][:, None]
+    out = torch.full((C, rows // 256, 256 * 128), float("nan"))
+    if bits == 8:
+        out[y[:, None], tile[:, None], b[:, None] + j] = \
+            src.view(torch.int8).float() * sc
+    else:
+        first = ((b >> 7) * 128 + (b & 127))[:, None] + j
+        v = src.to(torch.int32)
+        out[y[:, None], tile[:, None], first] = ((v & 0xF) - 8).float() * sc
+        out[y[:, None], tile[:, None], first + 128 * 128] = \
+            ((v >> 4) - 8).float() * sc
+    return out.reshape(C, rows, 128)
+
+
+@pytest.mark.parametrize("C,rows", [(1, 256), (50, 256), (65, 512),
+                                    (300, 256), (2, 8192)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequant_emulation_is_bitwise_the_plain_version(C, rows, bits):
+    rng = np.random.default_rng(C + rows + bits)
+    x = torch.from_numpy((0.05 * rng.standard_normal((C, rows, 128)))
+                         .astype(np.float32))
+    seeds = torch.from_numpy(rng.integers(0, 2**31 - 1, C, dtype=np.int32))
+    packed, scales = ref.quant_pack_ref(x, seeds, bits=bits)
+    got = _emulate_dequant(ops._dequant_plan(C, rows, bits), packed, scales,
+                           bits)
+    assert torch.equal(got, ref.dequant_unpack_ref(packed, scales,
+                                                   bits=bits))
+
+
+@pytest.mark.parametrize("C,rows", [(1, 256), (50, 256), (300, 256),
+                                    (50, 8192), (3, 65536)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_dequant_plan_covers_every_output_once(C, rows, bits):
+    plan = ops._dequant_plan(C, rows, bits)
+    assert plan.threads == ops.DQ_THREADS
+    assert plan.grid == (plan.parts * rows // 256, C)
+    tile_bytes = 256 * 128 // (8 // bits)
+    # the parts of a tile and their warps cover its 512-byte chunks
+    assert plan.parts * (plan.threads // 32) * 512 == tile_bytes
+    y, tile, b = _dequant_words(plan, rows)
+    word = (y * (rows // 256) + tile) * (tile_bytes // 4) + b // 4
+    n = C * rows // 256 * tile_bytes // 4
+    assert torch.equal(torch.bincount(word, minlength=n),
+                       torch.ones(n, dtype=torch.int64))

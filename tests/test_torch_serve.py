@@ -182,6 +182,9 @@ def test_rglru_train_and_decode():
 MODELS = {
     "recurrentgemma-9b": {},
     "smollm-360m": {},
+    # hd 80 as at full width (d_model 2560 over 32 heads), which the
+    # flash kernels run in their 128 build
+    "stablelm-3b": {"head_dim": 80},
     "starcoder2-7b": {"window_size": 8},     # ring wraps several times
 }
 
