@@ -92,13 +92,47 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      StableLM-3B at full width with the depth cut to 2 layers (W 2, B 1,
      S 2048, bf16; after a warm-up round) through `Transformer.loss`:
      launches as phase 11's per layer, losses finite;
- 12. prints the card line, the `kernels` JSON line (each row with its
-     share of bound = bound_ms / ms; each flash row with its cores, the
-     CUDA-core kernel's and the f32 path's times; a row of the forward at
-     the mesh shape, rows of quant_pack_ef, wire_agg and dequant_unpack at
-     the large leaf, of the forward and backward at hd 80 and of the
-     backward at hd 256) and, last,
-     the ok line.
+ 12. the straggler engine on a small input: `straggler/deadline-tight`
+     cut to C = 4, width 2, 3 rounds, fading off, quorum 3 and a deadline
+     between two workers' airtimes (round 0 has late uploads and holds,
+     round 1 drains them), through `run_prepared` on the card against
+     the same rounds on the CPU with the same data, init and draws:
+     selected, delivered, late, drained, buffered and held equal, the
+     global params within the small mesh rounds' f32 rule (the dense
+     f32 wire quantizes nothing), and the held rounds' global params
+     bitwise unchanged on the card;
+ 13. drives the straggler path: `straggler/deadline-tight` as registered
+     (C = 50, CNN5 w8, the dense f32 wire) for 3 rounds, then with the
+     int4 uplink and int8 downlink, counts reset just before and read
+     just after each; prints each round's late, drained, buffered, held
+     and accuracy; asserts a late upload in the registered run, and in
+     the int4 run quant_pack and dequant_unpack 2 x 10 leaves x 3 rounds
+     = 60 times each, 30 at C = 50 (the uplink) and 30 at C = 1 (the
+     downlink), as the wrappers count them by worker count, and
+     the fused kernels never (phase 3 holds quant_pack and
+     dequant_unpack at int4 C = 50 and times them);
+ 14. `faults/churn` as registered (K = 16, w2, 10 rounds): transmitted
+     and held a round; transmitted <= selected in every round and < in
+     some;
+ 15. `fleet/million-score` as registered (P = 10^6, K = 16, AWGN,
+     Rayleigh) and `fleet/million-uniform` with the int4 uplink and int8
+     downlink, 5 rounds each: the table's bytes (36 x 10^6), each round's
+     cohort churn (slots reseated); in the int4 run quant_pack_ef,
+     wire_agg, quant_pack and dequant_unpack once a leaf a round;
+ 16. SmolLM-360M at full width (phase 11's spec) with a deadline between
+     the two workers' airtimes (pathloss 0 and 6 dB; worker 1 late
+     whenever selected), 3 rounds: seconds a round, peak memory, losses,
+     late and drained (late in round 1, drained later), and phase 11's
+     launch counts every round;
+ 17. prints the card line, the `kernels` JSON line (each row with its
+     share of bound = bound_ms / ms; each kernel's first row with its
+     launches in the int4 straggler run, the int4 population run and the
+     mesh straggler run; each flash row with its cores,
+     the CUDA-core kernel's and the f32 path's times; a row of the
+     forward at the mesh shape, rows of quant_pack_ef, wire_agg and
+     dequant_unpack at the large leaf, of quant_pack and dequant_unpack
+     at the straggler uplink's int4 C = 50, of the forward and backward
+     at hd 80 and of the backward at hd 256) and, last, the ok line.
 
 Tolerances: payloads, scales, decodes and the wire_agg median bitwise;
 the error-feedback residual within 1 ulp of |acc| (fmaf in the kernel,
@@ -116,7 +150,8 @@ within 2 bf16 ulps of `attention_bwd_ref` (the ulp taken at no less than
 |gradient| against autograd of `attention_ref` (which forms
 rowsum(dO * O) from the f32 output, the kernel from the bf16 one). The
 small mesh rounds: losses within 5e-6, params and velocities within
-2e-7, masks equal (as the CPU parity tests).
+2e-7, masks equal (as the CPU parity tests). Every timing line of phases
+13-16 carries the card's name and power limit.
 """
 import json
 import math
@@ -214,6 +249,9 @@ def kernel_checks(dev):
     out = {k: {"max_abs_err": 0.0} for k in
            ("quant_pack_ef", "wire_agg", "quant_pack", "dequant_unpack")}
     large = {k: {} for k in ("quant_pack_ef", "wire_agg", "dequant_unpack")}
+    # the straggler route's dense int4 uplink: quant_pack and
+    # dequant_unpack over all C = 50 workers, one block per leaf
+    dense50 = {k: {} for k in ("quant_pack", "dequant_unpack")}
 
     def err(name, got, want):
         e = float((got.float() - want.float()).abs().max())
@@ -253,7 +291,9 @@ def kernel_checks(dev):
                 torch.cuda.synchronize()
                 check(torch.equal(kq, pq) and torch.equal(kqs, pqs),
                       f"quant_pack bits={bits} C={Cq} {label}")
-                err("quant_pack", kqs, pqs)
+                e = err("quant_pack", kqs, pqs)
+                if Cq == C and bits == 4:
+                    dense50["quant_pack"]["max_abs_err"] = e
                 # dequant_unpack
                 kd = qops.dequant_unpack_2d(pq, pqs, bits=bits)
                 pd = qref.dequant_unpack_ref(pq, pqs, bits=bits)
@@ -263,6 +303,8 @@ def kernel_checks(dev):
                 e = err("dequant_unpack", kd, pd)
                 if label == "large" and bits == 8:
                     large["dequant_unpack"]["max_abs_err"] = e
+                if Cq == C and bits == 4 and label == "main":
+                    dense50["dequant_unpack"]["max_abs_err"] = e
             # wire_agg: every mode, partial / all-lost masks, weights
             d = qref.dequant_unpack_ref(pp, ps, bits=bits)
             part = (torch.rand(C, generator=g, device=dev) > 0.3).float()
@@ -322,6 +364,11 @@ def kernel_checks(dev):
                     lambda: qops.quant_pack_2d(x1, s1, bits=bits),
                     lambda: qref.quant_pack_ref(x1, s1, bits=bits), 1,
                     4 * n1 + 4 + pb1 + 4 * nb, 23 * n1, None),
+                # the straggler route's dense uplink of all C workers
+                "quant_pack C=50": (
+                    lambda: qops.quant_pack_2d(x, s, bits=bits),
+                    lambda: qref.quant_pack_ref(x, s, bits=bits), C,
+                    4 * n + 4 * C + pbytes + 4 * C * nb, 23 * n, None),
                 "dequant_unpack": (
                     lambda: qops.dequant_unpack_2d(q1, q1s, bits=bits),
                     lambda: qref.dequant_unpack_ref(q1, q1s, bits=bits), 1,
@@ -369,6 +416,8 @@ def kernel_checks(dev):
                         (bits == 4 and name in ("quant_pack_ef", "wire_agg"))
                         or (bits == 8 and name == "dequant_unpack C=50")):
                     large[key].update(t, bound_ms=bnd, bound_by=by)
+                if label == "main" and bits == 4 and name.endswith("C=50"):
+                    dense50[key].update(t, bound_ms=bnd, bound_by=by)
             if label == "large" and bits == 4:
                 # wire_agg skips the workers it masks out, so its time
                 # follows the delivered count: the first k of C delivered
@@ -391,7 +440,7 @@ def kernel_checks(dev):
     print("[check] max abs err vs plain (all shapes, both widths): " +
           ", ".join(f"{k} {v['max_abs_err']:.3g}" for k, v in out.items()),
           flush=True)
-    return out, large
+    return out, large, dense50
 
 
 def small_round_check(dev):
@@ -1206,7 +1255,8 @@ def small_mesh_check(dev):
                  "labels": torch.roll(toks[:MESH_W], -1, dims=-1)}
         ev = {"tokens": toks[MESH_W], "labels": torch.roll(toks[MESH_W], -1,
                                                            dims=-1)}
-        draws = swarm_dist.sample_draws(gen, dcfg, cpu_params, "cpu")
+        draws = swarm_dist.sample_draws(gen, dcfg, cpu_params, "cpu",
+                                        round_idx=r)
         cs, ci = step(cs, batch, ev, draws)
         gs, gi = step(gs, to_dev(batch), to_dev(ev),
                       type(draws)(*[to_dev(x) for x in draws]))
@@ -1570,7 +1620,8 @@ def hd80_mesh_round(dev):
     runtime.reset_counts()
     times, losses = [], []
     for _ in range(2):
-        draws = swarm_dist.sample_draws(gen, dcfg, state.global_params, dev)
+        draws = swarm_dist.sample_draws(gen, dcfg, state.global_params, dev,
+                                        round_idx=state.round_idx)
         wb, eb = batch((MESH_W,)), batch(())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1602,6 +1653,328 @@ def hd80_mesh_round(dev):
     return counts
 
 
+# -- this slice: the straggler and population engines ---------------------
+
+FLEET_ROUNDS = 5
+INT4_WIRE = ("comm.compressor=int4", "comm.downlink_compressor=int8")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
+def straggler_small_spec():
+    """`straggler/deadline-tight` cut to C = 4, width 2, 3 rounds, fading
+    off, quorum 3, and the deadline between the airtimes of the workers
+    at 18 and 16 dB (pathloss 0-6 dB over 20 dB): workers 2 and 3 go late
+    whenever selected, so round 0 (everyone selected) delivers 2 < 3 and
+    holds, parking all four, and round 1 drains them."""
+    import dataclasses
+    import torch
+    from repro_torch.comm import budget, phy
+    from repro_torch.configs.paper_cnn import paper_cnn
+    from repro_torch.data.synthetic import MNIST_LIKE
+    from repro_torch.experiments import get_scenario, override
+
+    base = override(get_scenario("straggler/deadline-tight"),
+                    "data.num_workers=4", "model.width_mult=2",
+                    "data.n_local=64", "algo.local_epochs=1", "run.rounds=3",
+                    "comm.quorum=3")
+    base = dataclasses.replace(base, comm=base.comm._replace(fading="none"))
+    comm = base.comm
+    params = paper_cnn(MNIST_LIKE, 2).init(torch.Generator().manual_seed(0))
+    air = budget.worker_airtime_s(
+        comm, budget.worker_payload_bytes(comm, params, 4),
+        phy.init_state(comm, 4).snr_db)
+    return override(base, "comm.round_deadline_s="
+                          f"{math.sqrt(float(air[1]) * float(air[2]))}")
+
+
+def straggler_small_check(dev):
+    """Phase 12: three rounds of the small straggler run on the card
+    (through `run_prepared`, counts reset just before and read just after)
+    against the same rounds on the CPU, same data, init and draws: masks
+    and the straggler rows equal, global params within the f32 rule of
+    the small mesh rounds, the held round's global params bitwise
+    unchanged on the card."""
+    import torch
+    from repro_torch.bridge import tree_to_numpy
+    from repro_torch.experiments import build, run_prepared
+    from repro_torch.kernels import runtime
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    spec = straggler_small_spec()
+    cpu = build(spec, device="cpu")
+    data = tree_map(lambda t: t.cpu().numpy(), tuple(cpu.aux["data"]))
+    gpu = build(spec, device=dev, data=type(cpu.aux["data"])(*data),
+                init_params=tree_to_numpy(cpu.state.global_params))
+    draws, steps = [], {"cpu": [], "gpu": []}
+
+    def record_draw(state):
+        draws.append(cpu.draw(state))
+        return draws[-1]
+
+    def on_card(state):
+        return type(draws[0])(*[None if v is None else tree_map(
+            lambda t: t.to(dev), v) for v in draws[state.round_idx]])
+
+    def stepper(prep, key):
+        def step(state, d):
+            nxt, m = prep.step(state, d)
+            steps[key].append((state.global_params, nxt.global_params))
+            return nxt, m
+        return step
+
+    crec = run_prepared(cpu._replace(draw=record_draw,
+                                     step=stepper(cpu, "cpu")),
+                        verbose=False).record
+    runtime.reset_counts()
+    grec = run_prepared(gpu._replace(draw=on_card, step=stepper(gpu, "gpu")),
+                        verbose=False).record
+    torch.cuda.synchronize()
+    counts = runtime.counts()
+    for k in ("selected", "delivered", "late", "drained", "buffered", "held"):
+        check(crec[k] == grec[k], f"small straggler run: {k} card "
+                                  f"{grec[k]} vs CPU {crec[k]}")
+    check(sum(grec["late"]) > 0 and sum(grec["held"]) > 0
+          and sum(grec["drained"]) > 0,
+          f"small straggler run: late {grec['late']}, held {grec['held']}, "
+          f"drained {grec['drained']}: expected some of each")
+    worst, worst_abs = 0.0, 0.0
+    for t, ((c0, c1), (g0, g1)) in enumerate(zip(steps["cpu"],
+                                                 steps["gpu"])):
+        if grec["held"][t]:
+            check(all(torch.equal(a, b) for a, b in zip(tree_leaves(g0),
+                                                        tree_leaves(g1))),
+                  f"small straggler run: held round {t} moved the global "
+                  f"params on the card")
+        # the dense f32 wire quantizes nothing, so no rounding level can
+        # flip between card and CPU: the small mesh rounds' f32 rule, the
+        # larger of MESH_PARAM_TOL and 1e-5 of the leaf's move this round
+        for c, g, b0 in zip(tree_leaves(c1), tree_leaves(g1),
+                            tree_leaves(c0)):
+            err = float((g.cpu() - c).abs().max())
+            tol = max(MESH_PARAM_TOL, 1e-5 * float((c - b0).abs().max()))
+            worst, worst_abs = max(worst, err / tol), max(worst_abs, err)
+    check(worst <= 1.0, f"small straggler run: card vs CPU global params "
+                        f"off by {worst_abs:.3g} (worst/tol {worst:.3f})")
+    print(f"[small] straggler C=4 w2, 3 rounds card vs CPU: late "
+          f"{grec['late']}, drained {grec['drained']}, buffered "
+          f"{grec['buffered']}, held {grec['held']} equal; held rounds "
+          f"bitwise; global params max abs err {worst_abs:.3g} (worst/tol "
+          f"{worst:.3f}, tol max({MESH_PARAM_TOL:g}, 1e-5 x the round's "
+          f"move)); launches {counts}", flush=True)
+
+
+def straggler_main_path(card: str) -> dict:
+    """Phase 13: `straggler/deadline-tight` as registered (C = 50, CNN5
+    w8, the dense f32 wire) for ROUNDS rounds, then with the int4 uplink
+    and int8 downlink, counts reset just before and read just after each.
+    The int4 run's dense route launches quant_pack and dequant_unpack once
+    a leaf for the uplink (C = 50) and once for the downlink (C = 1) a
+    round, the fused kernels never. Returns the int4 run's counts and its
+    counts by worker count."""
+    import torch
+    from repro_torch.experiments import get_scenario, override, run
+    from repro_torch.kernels import runtime
+
+    out = {}, {}
+    for label, sets in (("registered", ()), ("int4", INT4_WIRE)):
+        spec = override(get_scenario("straggler/deadline-tight"),
+                        f"run.rounds={ROUNDS}", *sets)
+        runtime.reset_counts()
+        t0 = time.perf_counter()
+        rec = run(spec, verbose=False).record
+        torch.cuda.synchronize()
+        counts, by_workers = runtime.counts(), runtime.counts_by_workers()
+        wall = time.perf_counter() - t0
+        for t in range(ROUNDS):
+            print(f"[straggler] {label} round {t + 1}: "
+                  f"{rec['round_time_s'][t]:.4f} s, acc {rec['acc'][t]:.4f}, "
+                  f"loss {rec['global_loss'][t]:.5f}, selected "
+                  f"{rec['selected'][t]}/50, late {rec['late'][t]}, "
+                  f"delivered {rec['delivered'][t]}, drained "
+                  f"{rec['drained'][t]}, buffered {rec['buffered'][t]}, "
+                  f"held {rec['held'][t]} ({card})", flush=True)
+        print(f"[straggler] {label}: {ROUNDS} rounds of "
+              f"straggler/deadline-tight (C=50, cnn5 w8) in {wall:.2f} s "
+              f"incl. setup; launches {counts}, by worker count "
+              f"{by_workers}", flush=True)
+        check(all(math.isfinite(v) for v in rec["global_loss"])
+              and all(0.0 <= v <= 1.0 for v in rec["acc"]),
+              f"straggler {label}: loss or accuracy out of range")
+        if label == "registered":
+            check(any(v > 0 for v in rec["late"]),
+                  f"straggler/deadline-tight: no upload late in "
+                  f"{rec['late']}")
+            check(counts == {}, f"straggler dense f32 run launched {counts}")
+        else:
+            per = LEAVES * ROUNDS
+            want = {"quant_pack": 2 * per, "dequant_unpack": 2 * per}
+            check(counts == want, f"straggler int4 run launched {counts}, "
+                                  f"expected {want}")
+            # the uplink at C = 50 and the downlink at C = 1, a leaf each
+            want = {k: {1: per, 50: per} for k in want}
+            check(by_workers == want, f"straggler int4 run launched "
+                                      f"{by_workers} by worker count, "
+                                      f"expected {want}")
+            out = counts, by_workers
+    return out
+
+
+def churn_path(card: str) -> None:
+    """Phase 14: `faults/churn` as registered (K = 16, w2, 10 rounds):
+    crashed workers transmit nothing, so transmitted <= selected every
+    round and < in some round."""
+    import torch
+    from repro_torch.experiments import get_scenario, run
+    from repro_torch.kernels import runtime
+
+    spec = get_scenario("faults/churn")
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    rec = run(spec, verbose=False).record
+    torch.cuda.synchronize()
+    counts, wall = runtime.counts(), time.perf_counter() - t0
+    print(f"[churn] faults/churn (K=16, cnn5 w2, fault_prob 0.15 x 2 rounds,"
+          f" quorum 4), {spec.run.rounds} rounds in {wall:.2f} s incl. setup "
+          f"({card}); launches {counts}", flush=True)
+    for key in ("selected", "transmitted", "late", "delivered", "drained",
+                "held", "acc"):
+        print(f"[churn]   {key}: {rec[key]}", flush=True)
+    check(all(t <= s for t, s in zip(rec["transmitted"], rec["selected"]))
+          and any(t < s for t, s in zip(rec["transmitted"], rec["selected"])),
+          f"faults/churn: transmitted {rec['transmitted']} against selected "
+          f"{rec['selected']}")
+    check(all(math.isfinite(v) for v in rec["global_loss"]),
+          "faults/churn: loss not finite")
+
+
+def fleet_path(card: str) -> dict:
+    """Phase 15: `fleet/million-score` as registered (P = 10^6, K = 16,
+    AWGN, Rayleigh) and `fleet/million-uniform` with the int4 uplink and
+    int8 downlink, FLEET_ROUNDS rounds each, counts reset just before and
+    read just after each: the table's bytes, each round's cohort churn
+    (slots reseated), and in the int4 run quant_pack_ef and wire_agg once
+    a leaf a round under the reseated cohort. Returns the int4 counts."""
+    import torch
+    from repro_torch.core import population as pop
+    from repro_torch.experiments import get_scenario, override, run
+    from repro_torch.kernels import runtime
+
+    out = {}
+    for name, sets in (("fleet/million-score", ()),
+                       ("fleet/million-uniform", INT4_WIRE)):
+        spec = override(get_scenario(name), f"run.rounds={FLEET_ROUNDS}",
+                        *sets)
+        runtime.reset_counts()
+        t0 = time.perf_counter()
+        res = run(spec, verbose=False)
+        torch.cuda.synchronize()
+        counts, wall = runtime.counts(), time.perf_counter() - t0
+        rec = res.record
+        K, P = rec["cohort_size"], rec["population"]
+        prev, churn = list(range(K)), []
+        for c in rec["cohort"]:
+            churn.append(sum(a != b for a, b in zip(c, prev)))
+            prev = c
+        nbytes = pop.table_bytes(res.state.table)
+        print(f"[fleet] {name}{' int4' if sets else ''}: P={P} K={K}, table "
+              f"{nbytes} B on the card; {FLEET_ROUNDS} rounds in {wall:.2f} "
+              f"s incl. setup ({card}); round times "
+              f"{[round(v, 4) for v in rec['round_time_s']]} s; slots "
+              f"reseated a round {churn}; acc {rec['acc']}; launches "
+              f"{counts}", flush=True)
+        check(nbytes == 36 * P == 36_000_000, f"{name}: table {nbytes} B")
+        check(all(len(set(c)) == K and all(0 <= i < P for i in c)
+                  for c in rec["cohort"]), f"{name}: cohorts not K-subsets")
+        check(sum(churn[1:]) > 0, f"{name}: no slot reseated after round 0")
+        check(all(math.isfinite(v) for v in rec["global_loss"]),
+              f"{name}: loss not finite")
+        if sets:
+            per = LEAVES * FLEET_ROUNDS
+            want = {"quant_pack_ef": per, "wire_agg": per,
+                    "quant_pack": per, "dequant_unpack": per}
+            check(counts == want, f"{name} int4 launched {counts}, expected "
+                                  f"{want}")
+            out = counts
+        else:
+            check(counts == {}, f"{name} (dense f32, AWGN) launched {counts}")
+    return out
+
+
+def mesh_straggler_path(card: str) -> dict:
+    """Phase 16: `mesh/smollm-smoke` at full width with the straggler
+    engine, ROUNDS rounds, counts reset just before and read just after:
+    pathloss puts worker 1 6 dB below worker 0 and the deadline sits
+    between their dense bf16 uploads' airtimes (`budget.worker_airtime_s`),
+    so worker 1 goes late whenever selected (round 0 selects both) and
+    its parked delta drains the next round. Flash, its backward and
+    pso_update keep phase 11's counts a round."""
+    import torch
+    from repro_torch.comm import budget, phy
+    from repro_torch.configs import get_arch
+    from repro_torch.experiments import get_scenario, override, run
+    from repro_torch.kernels import runtime
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.pytree import tree_leaves
+
+    base = override(get_scenario("mesh/smollm-smoke"), *MESH_SPEC,
+                    "comm.pathloss_spread_db=6", "comm.staleness_gamma=0.5")
+    cfg = get_arch(MESH_ARCH)
+    meta = Transformer(cfg).init(None, "meta")
+    air = budget.worker_airtime_s(
+        base.comm, budget.worker_payload_bytes(base.comm, meta, MESH_W),
+        phy.init_state(base.comm, MESH_W).snr_db)
+    deadline = math.sqrt(float(air[0]) * float(air[1]))
+    spec = override(base, f"comm.round_deadline_s={deadline}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    result = run(spec, verbose=False)
+    torch.cuda.synchronize()
+    counts, wall = runtime.counts(), time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rec = result.record
+    for t in range(ROUNDS):
+        print(f"[mesh-straggler] round {t + 1}"
+              f"{' (warm-up)' if t == 0 else ''}: {rec['step_time_s'][t]:.4f}"
+              f" s, global loss {rec['global_loss'][t]:.5f}, worker losses "
+              f"{rec['worker_losses'][t]}, selected {rec['selected'][t]}/"
+              f"{MESH_W}, late {rec['late'][t]}, drained {rec['drained'][t]}, "
+              f"buffered {rec['buffered'][t]}, held {rec['held'][t]} "
+              f"({card})", flush=True)
+    steady = rec["step_time_s"][1:]
+    print(f"[mesh-straggler] {MESH_ARCH} full width W={MESH_W} B={MESH_B} "
+          f"S={MESH_S}, deadline {deadline:.1f} s between airtimes "
+          f"{float(air[0]):.1f} / {float(air[1]):.1f} s: "
+          f"{statistics.mean(steady):.4f} s a round after the warm-up, peak "
+          f"memory {peak / 2**30:.2f} GiB, {wall:.1f} s with init ({card}); "
+          f"launches {counts}", flush=True)
+    check(rec["late"][0] == 1.0 and any(v > 0 for v in rec["drained"][1:]),
+          f"mesh straggler: late {rec['late']}, drained {rec['drained']}")
+    check(all(math.isfinite(v) for v in rec["global_loss"]),
+          "mesh straggler: global loss not finite")
+    check(all(bool(torch.isfinite(x).all())
+              for x in tree_leaves(result.state.global_params)),
+          "mesh straggler: global params not finite")
+    per_round = mesh_launches_per_round(
+        cfg, len(tree_leaves(result.state.global_params)))
+    for t in range(ROUNDS):
+        check(rec["launches"][t] == per_round,
+              f"mesh straggler round {t + 1} launched {rec['launches'][t]}, "
+              f"expected {per_round}")
+    del result
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1622,14 +1995,10 @@ def main() -> None:
     runtime.build_all()
     print(f"[build] {time.perf_counter() - t0:.1f} s for "
           f"{', '.join(runtime.SOURCES)}", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else f"nvidia-smi failed: {smi.stderr.strip()}"
+    card = card_line()
     print(card, flush=True)
 
-    stats, large_leaf = kernel_checks(dev)
+    stats, large_leaf, dense50 = kernel_checks(dev)
     small_round_check(dev)
 
     spec = override(get_scenario("low-bandwidth-int4"),
@@ -1680,6 +2049,12 @@ def main() -> None:
     profile_mesh(mesh_spec)
     hd_bwd_rows = hd_backward_checks(dev)
     hd80_mesh_counts = hd80_mesh_round(dev)
+
+    straggler_small_check(dev)
+    straggler_counts, straggler_by_workers = straggler_main_path(card)
+    churn_path(card)
+    fleet_counts = fleet_path(card)
+    mesh_straggler_counts = mesh_straggler_path(card)
 
     src = {"quant_pack_ef": ("quant_pack",
                              "src/repro/kernels/quant_pack/quant_pack.py:172"),
@@ -1786,6 +2161,29 @@ def main() -> None:
         launches=0, path="none yet: RecurrentGemma-9B training waits for "
                          "the scan's backward", cuda_core_ms=None,
         f32_ms=None, library_fwd_bwd_ms=None, **hd_bwd_rows["hd256"]))
+    # this slice: on each kernel's first row, its launches (at every
+    # shape) in the int4 straggler run, the int4 population run and the
+    # mesh straggler run; and rows of the straggler route's dense int4
+    # uplink and decode over all C = 50 workers (its main-path shape)
+    for k in kernels:
+        if " (" not in k["name"]:
+            k["launches_straggler"] = straggler_counts.get(k["name"], 0)
+            k["launches_population"] = fleet_counts.get(k["name"], 0)
+            k["launches_mesh_straggler"] = mesh_straggler_counts.get(
+                k["name"], 0)
+    for name in ("quant_pack", "dequant_unpack"):
+        row = {key: v for key, v in next(
+            k for k in kernels if k["name"] == name).items()
+            if not key.startswith("launches_")}
+        kernels.append(dict(
+            row, name=f"{name} (straggler uplink, int4 C=50)",
+            # the run's launches at C = 50 (the uplink's; the int8
+            # downlink's are at C = 1)
+            shape="int4, C=50 x (256,128)",
+            launches=straggler_by_workers[name][50],
+            **{key: dense50[name][key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "eager_ms")}))
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(card, flush=True)

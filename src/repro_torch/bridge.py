@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch.comm.phy import PhyState
+from repro_torch.comm.straggler import StragglerBuffer
 from repro_torch.core.mdsl import SwarmTrainState
+from repro_torch.core.population import PopulationTable
 from repro_torch.core.pso import GlobalBest, WorkerState
 from repro_torch.core.selection import SelectionState
 from repro_torch.models.transformer import Transformer
@@ -37,14 +39,13 @@ def tree_to_numpy(tree: PyTree) -> PyTree:
 
 
 def train_state_from_numpy(np_state: Any, device="cpu") -> SwarmTrainState:
-    """A reference SwarmTrainState with numpy leaves -> the port's."""
-    if getattr(np_state, "buffer", None) is not None:
-        raise NotImplementedError("the straggler buffer is not ported yet")
-
+    """A reference SwarmTrainState with numpy leaves -> the port's (its
+    straggler buffer, when it has one, included)."""
     def t(a):
         return tree_from_numpy(a, device)
 
-    w, g, p = np_state.workers, np_state.gbest, np_state.phy
+    w, g, p, b = (np_state.workers, np_state.gbest, np_state.phy,
+                  getattr(np_state, "buffer", None))
     return SwarmTrainState(
         workers=WorkerState(params=t(w.params), velocity=t(w.velocity),
                             best_params=t(w.best_params),
@@ -58,8 +59,24 @@ def train_state_from_numpy(np_state: Any, device="cpu") -> SwarmTrainState:
         eta=t(np_state.eta),
         residual=t(np_state.residual),
         ps_residual=t(np_state.ps_residual),
-        phy=PhyState(*(t(getattr(p, f)) for f in PhyState._fields)),
-        buffer=None)
+        phy=phy_state_from_numpy(p, device),
+        buffer=(None if b is None
+                else StragglerBuffer(delta=t(b.delta), age=t(b.age))))
+
+
+def phy_state_from_numpy(np_phy: Any, device="cpu") -> PhyState:
+    """A reference PhyState with numpy leaves -> the port's."""
+    return PhyState(*(tree_from_numpy(getattr(np_phy, f), device)
+                      for f in PhyState._fields))
+
+
+def population_table_from_numpy(np_table: Any,
+                                device="cpu") -> PopulationTable:
+    """A reference PopulationTable with numpy leaves -> the port's."""
+    return PopulationTable(
+        phy=phy_state_from_numpy(np_table.phy, device),
+        **{f: tree_from_numpy(getattr(np_table, f), device)
+           for f in PopulationTable._fields if f != "phy"})
 
 
 def array_to_tensor(a) -> torch.Tensor:

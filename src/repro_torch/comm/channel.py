@@ -13,8 +13,9 @@ Byzantine workers (the last `byzantine` of C) corrupt their own round
 params before the wire, so Eq. 6 can see and reject them.
 
 Random draws are inputs: `keep` (C,) erasure draws, `noise` per-leaf
-standard normals shaped by `noise_shapes`, `byz_noise` per-leaf (C,
-*leaf) normals for the gaussian attack.
+standard normals shaped by `noise_shapes` (also the straggler engine's,
+comm/straggler.py), `byz_noise` per-leaf (C, *leaf) normals for the
+gaussian attack.
 """
 from __future__ import annotations
 
@@ -58,13 +59,16 @@ def corrupt_local_updates(cfg: CommConfig, prev_params: PyTree,
 
 def noise_shapes(cfg: CommConfig, params: PyTree,
                  num_workers: int) -> Optional[list[tuple]]:
-    """Shapes of the per-leaf AWGN draws `receive` consumes (None when
-    the link has no AWGN): (C, *leaf) for per-upload noise — robust
-    aggregators, or per-worker SNRs — else the superposed leaf shape."""
+    """Shapes of the per-leaf AWGN draws the Aggregate stage consumes
+    (None when the link has no AWGN): (C, *leaf) for per-upload noise —
+    robust aggregators, per-worker SNRs, or the straggler engine (an
+    asynchronous round has no analog superposition) — else the
+    superposed leaf shape."""
     link = comm_phy.link_model(cfg)
     if not link.awgn:
         return None
-    per_upload = cfg.aggregator != "mean" or link.per_worker
+    per_upload = (cfg.aggregator != "mean" or link.per_worker
+                  or cfg.round_deadline_s is not None)
     return [((num_workers,) if per_upload else ()) + tuple(x.shape)
             for x in tree_flatten(params)[0]]
 

@@ -5,6 +5,7 @@
               worker's last delivered upload
   evolve      Rayleigh block fading as a Gauss-Markov process
               h' = rho h + sqrt(1 - rho^2) CN(0, 1), from unit gain
+              (`lazy_fading_coeffs`: Δ rounds of it in closed form)
   LinkModel   the channel enum decomposed into delivery (packet erasure,
               SNR outage) x distortion (AWGN)
 
@@ -76,9 +77,29 @@ def evolve(cfg: CommConfig, phy: PhyState,
         snr_db=instantaneous_snr_db(cfg, h_re, h_im, phy.pathloss_db))
 
 
-def advance_age(phy: PhyState, mask_eff: torch.Tensor) -> PhyState:
-    """A delivered upload resets the worker's age; everyone else ages."""
-    aged = torch.where(mask_eff > 0, torch.zeros_like(phy.age), phy.age + 1)
+def lazy_fading_coeffs(cfg: CommConfig, steps: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Δ rounds of Gauss-Markov fading in one draw: iterating h' = rho h
+    + sqrt(1 - rho^2) CN(0, 1) Δ times gives h = rho^Δ h + sqrt(1 -
+    rho^(2Δ)) CN(0, 1). Returns (rho^Δ, the innovation scale) for an
+    int `steps` vector; Δ = 0 gives (1, 0)."""
+    rho_d = torch.pow(torch.tensor(cfg.doppler_rho, dtype=torch.float32,
+                                   device=steps.device),
+                      steps.to(torch.float32))
+    return rho_d, torch.sqrt(torch.clamp(1.0 - rho_d * rho_d, min=0.0))
+
+
+def advance_age(phy: PhyState, mask_eff: torch.Tensor,
+                buffered: Optional[torch.Tensor] = None) -> PhyState:
+    """A delivered upload resets the worker's age; everyone else ages.
+    `buffered` (the straggler engine's buffer ages) marks late uploads
+    parked at the PS: their age pins at 1. buffered=None leaves the
+    delivered/undelivered rule as it is."""
+    delivered = mask_eff > 0
+    aged = torch.where(delivered, torch.zeros_like(phy.age), phy.age + 1)
+    if buffered is not None:
+        aged = torch.where((buffered > 0) & ~delivered,
+                           torch.ones_like(aged), aged)
     return phy._replace(age=aged)
 
 

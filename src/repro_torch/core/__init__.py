@@ -1,2 +1,3 @@
 """The M-DSL engine: losses, Eq.-2 non-i.i.d. degree, selection, PSO,
-the round pipeline and the paper round (`mdsl.mdsl_round`)."""
+the round pipeline, the paper round (`mdsl.mdsl_round`) and the
+population engine (`population`)."""

@@ -59,7 +59,8 @@ class SwarmTrainState(NamedTuple):
     residual: PyTree                 # (C, ...) uplink EF state
     ps_residual: PyTree              # PS-side downlink EF state
     phy: comm_phy.PhyState
-    buffer: Any = None               # straggler buffer (engine not ported)
+    buffer: Any = None               # comm.straggler.StragglerBuffer
+    #                                  (None while no deadline is set)
 
 
 class RoundDraws(NamedTuple):
@@ -72,12 +73,19 @@ class RoundDraws(NamedTuple):
     fade: Optional[torch.Tensor] = None    # (2, C) fading innovations
     noise: Optional[list] = None     # per-leaf AWGN normals
     byz_noise: Optional[list] = None  # per-leaf (C, *leaf) attack normals
+    # (R, C) bool fault-schedule crash rows of rounds t .. t - R + 1
+    # (comm.straggler.crash_draws); None unless fault_prob > 0
+    crash: Optional[torch.Tensor] = None
 
 
 def sample_round_draws(gen: torch.Generator, cfg: MdslConfig,
                        params: PyTree, num_workers: int, n_local: int,
-                       device) -> RoundDraws:
-    """One round's draws from the port's own generator."""
+                       device, round_idx: int) -> RoundDraws:
+    """One round's draws from the port's own generator. The fault
+    schedule's crash rows of round `round_idx` come from the schedule's
+    own keyed stream (`comm.straggler.crash_draws`), never from `gen`,
+    so a run with faults draws the same sequence from `gen` as one
+    without."""
     C, comm = num_workers, cfg.comm
     leaves = tree_leaves(params)
     L = len(leaves)
@@ -104,6 +112,9 @@ def sample_round_draws(gen: torch.Generator, cfg: MdslConfig,
         noise=[normal(s) for s in shapes] if shapes else None,
         byz_noise=([normal((C,) + tuple(x.shape)) for x in leaves]
                    if byz else None),
+        crash=(torch.from_numpy(comm_straggler.crash_draws(
+            comm, round_idx, C)).to(device)
+            if comm_straggler.fault_mode(comm) else None),
     )
 
 
@@ -208,8 +219,7 @@ def mdsl_round(state: SwarmTrainState, data_x: torch.Tensor,
     out = pipe.wire(delta=delta, theta=theta, mask=mask,
                     global_params=state.global_params,
                     residual=state.residual, ps_residual=state.ps_residual,
-                    draws=draws, phy=state.phy, buffer=state.buffer,
-                    round_idx=state.round_idx)
+                    draws=draws, phy=state.phy, buffer=state.buffer)
 
     # --- BestTracking (Eq. 10) ---
     with rounds.stage_span("BestTracking"), torch.no_grad():

@@ -15,12 +15,15 @@ stacked-worker pytrees (leading dim C).
 
 `wire_round` is the one Uplink -> Aggregate -> Downlink block, with the
 JAX package's three routes: the fused packed route (int8/int4, one
-tier, no AWGN — the quant_pack_ef and wire_agg kernels), the straggler
-route (not ported yet: raises) and the dense route.
+tier, no AWGN, no deadline — the quant_pack_ef and wire_agg kernels),
+the straggler route (a round deadline: the dense uplink, then a
+Straggle stage and `comm.straggler.aggregate_and_drain`) and the dense
+route. Fault injection (`fault_prob`) deselects crashed workers before
+any of them.
 
 Random draws are inputs: `wire_round` reads the uplink/downlink seeds,
-the erasure keep draw, the fading normals and the AWGN noise from the
-round's `RoundDraws` (core/mdsl.py).
+the erasure keep draw, the fading normals, the AWGN noise and the fault
+schedule's crash rows from the round's `RoundDraws` (core/mdsl.py).
 """
 from __future__ import annotations
 
@@ -61,8 +64,17 @@ class RoundTelemetry(NamedTuple):
     airtime_s: torch.Tensor
     energy_j: torch.Tensor
     mean_snr_db: torch.Tensor
-    # the JAX package's trailing population/straggler fields (cohort,
-    # late, drained, buffered, held, transmitted) come with those engines
+    # (K,) int device ids seated this round by the population engine
+    # (core/population.py); None on full-fleet runs
+    cohort: Any = None
+    # straggler scalars (comm.straggler); None unless round_deadline_s
+    late: Any = None          # () selected uploads past the deadline
+    drained: Any = None       # () parked deltas folded in this round
+    buffered: Any = None      # () buffer occupancy after the round
+    held: Any = None          # () 1.0 on a quorum-hold round
+    # () workers that transmitted (selected minus crashed); None unless
+    # fault injection is on
+    transmitted: Any = None
 
     @property
     def eval_losses(self) -> torch.Tensor:
@@ -81,7 +93,9 @@ class WireOutcome(NamedTuple):
     mask_eff: torch.Tensor
     record: comm_budget.CommRecord
     phy: Any = None
-    buffer: Any = None
+    buffer: Any = None        # advanced StragglerBuffer (None: no deadline)
+    straggler: Any = None     # StragglerStats (None: no deadline)
+    transmitted: Any = None   # () transmitting workers (None: no faults)
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +215,6 @@ def wire_round(comm: CommConfig, *, delta: PyTree, theta: torch.Tensor,
                mask: torch.Tensor, global_params: PyTree, residual: PyTree,
                ps_residual: PyTree, draws, num_workers: int,
                phy: Optional[PhyState] = None, buffer: Any = None,
-               round_idx: Optional[int] = None,
                uplink_fn: Callable = uplink,
                aggregate_fn: Callable = comm_channel.receive,
                downlink_fn: Callable = downlink) -> WireOutcome:
@@ -210,9 +223,36 @@ def wire_round(comm: CommConfig, *, delta: PyTree, theta: torch.Tensor,
     `phy` evolves first (one block-fading draw per round) and the round
     runs against the evolved SNRs. The fused packed route runs when the
     Uplink/Aggregate stages are the defaults and the config qualifies
-    (`compress.packed_wire_eligible`); the straggler route (a round
-    deadline or fault injection) is not ported and raises."""
-    comm_straggler.require_off(comm)
+    (`compress.packed_wire_eligible`). With `round_deadline_s` set, a
+    Straggle stage between the dense Uplink and the Aggregate derives
+    deadline misses from each upload's airtime, parks late deltas in
+    `buffer`, drains parked ones at the FedBuff discount, and holds w_t
+    (the broadcast and the PS residual with it) bitwise when fewer than
+    `quorum` deltas are available. With `fault_prob` > 0 the workers
+    the round's crash rows (`draws.crash`) put in an outage are
+    deselected before the uplink."""
+    straggler_mode = comm_straggler.active(comm)
+    if straggler_mode and (uplink_fn is not uplink
+                           or aggregate_fn is not comm_channel.receive):
+        raise ValueError(
+            "round_deadline_s replaces the Aggregate stage with the "
+            "straggler engine; it cannot compose with injected "
+            "uplink/aggregate stage functions")
+    if straggler_mode and buffer is None:
+        raise ValueError(
+            "straggler mode needs the parked-delta state: init the engine "
+            "with comm.straggler.init_buffer and thread it through "
+            "wire_round(buffer=...)")
+    transmitted = None
+    if comm_straggler.fault_mode(comm):
+        if draws.crash is None:
+            raise ValueError("fault injection (fault_prob > 0) needs the "
+                             "round's crash rows in draws.crash "
+                             "(comm.straggler.crash_draws)")
+        # crashed workers transmit nothing: no bytes, no airtime, no EF
+        # advance
+        mask = mask * comm_straggler.alive_mask(draws.crash)
+        transmitted = mask.sum()
     if phy is not None:
         phy = comm_phy.evolve(comm, phy, draws.fade)
         snr_db = phy.snr_db
@@ -221,6 +261,7 @@ def wire_round(comm: CommConfig, *, delta: PyTree, theta: torch.Tensor,
     packed_route = (uplink_fn is uplink
                     and aggregate_fn is comm_channel.receive
                     and comm_compress.packed_wire_eligible(comm, delta))
+    sstats = None
     if packed_route:
         with stage_span("Uplink"):
             wire, residual = uplink_packed(comm, delta, residual, mask,
@@ -231,25 +272,51 @@ def wire_round(comm: CommConfig, *, delta: PyTree, theta: torch.Tensor,
                 comm, global_params, wire, mask, keep=draws.keep,
                 snr_db=snr_db)
     else:
+        # the straggler route always runs the dense uplink: parking a late
+        # delta needs its individual decode
         with stage_span("Uplink"):
             wire, residual, tier_idx = uplink_fn(comm, delta, residual,
                                                  theta, mask, draws.up_seeds,
                                                  snr_db=snr_db)
-        with stage_span("Aggregate"):
-            agg_params, mask_eff = aggregate_fn(
-                comm, global_params, wire, mask, keep=draws.keep,
-                noise=draws.noise, snr_db=snr_db)
+        if straggler_mode:
+            with stage_span("Straggle"):
+                late = comm_straggler.late_mask(comm, global_params, mask,
+                                                snr_db=snr_db,
+                                                tier_idx=tier_idx)
+            with stage_span("Aggregate"):
+                agg_params, mask_eff, buffer, sstats = (
+                    comm_straggler.aggregate_and_drain(
+                        comm, global_params, wire, mask, late, snr_db,
+                        buffer, keep=draws.keep, noise=draws.noise))
+        else:
+            with stage_span("Aggregate"):
+                agg_params, mask_eff = aggregate_fn(
+                    comm, global_params, wire, mask, keep=draws.keep,
+                    noise=draws.noise, snr_db=snr_db)
     with stage_span("Downlink"):
-        bcast, ps_residual = downlink_fn(comm, agg_params, global_params,
-                                         ps_residual, draws.down_seeds)
+        bcast, ps_res_new = downlink_fn(comm, agg_params, global_params,
+                                        ps_residual, draws.down_seeds)
+    if straggler_mode:
+        # quorum hold: the PS broadcasts w_t unchanged and its downlink EF
+        # state freezes (a compressed downlink would otherwise flush its
+        # residual through a zero aggregate)
+        held = sstats.held > 0
+        bcast = tree_map(lambda g, b: torch.where(held, g, b),
+                         global_params, bcast)
+        ps_residual = tree_map(lambda o, n: torch.where(held, o, n),
+                               ps_residual, ps_res_new)
+    else:
+        ps_residual = ps_res_new
     rec = comm_budget.round_record(comm, global_params, num_workers, mask,
                                    mask_eff, tier_idx=tier_idx,
                                    snr_db=snr_db)
     if phy is not None:
-        phy = comm_phy.advance_age(phy, mask_eff)
+        phy = comm_phy.advance_age(
+            phy, mask_eff, buffered=buffer.age if straggler_mode else None)
     return WireOutcome(global_params=bcast, residual=residual,
                        ps_residual=ps_residual, mask_eff=mask_eff,
-                       record=rec, phy=phy, buffer=buffer)
+                       record=rec, phy=phy, buffer=buffer,
+                       straggler=sstats, transmitted=transmitted)
 
 
 # ---------------------------------------------------------------------------
@@ -327,13 +394,12 @@ class RoundPipeline(NamedTuple):
                                         self.tau, prev_theta_mean)
 
     def wire(self, *, delta, theta, mask, global_params, residual,
-             ps_residual, draws, phy=None, buffer=None,
-             round_idx=None) -> WireOutcome:
+             ps_residual, draws, phy=None, buffer=None) -> WireOutcome:
         return wire_round(self.comm, delta=delta, theta=theta, mask=mask,
                           global_params=global_params, residual=residual,
                           ps_residual=ps_residual, draws=draws,
                           num_workers=self.num_workers, phy=phy,
-                          buffer=buffer, round_idx=round_idx,
+                          buffer=buffer,
                           uplink_fn=self.uplink_fn,
                           aggregate_fn=self.aggregate_fn,
                           downlink_fn=self.downlink_fn)
@@ -341,6 +407,7 @@ class RoundPipeline(NamedTuple):
     def telemetry(self, *, losses, theta, mask, global_loss,
                   outcome: WireOutcome) -> RoundTelemetry:
         rec = outcome.record
+        s = outcome.straggler
         return RoundTelemetry(
             losses=losses, theta=theta, mask=mask, global_loss=global_loss,
             selected_count=mask.sum(),
@@ -350,7 +417,9 @@ class RoundPipeline(NamedTuple):
             delivered=rec.delivered,
             compression_ratio=rec.compression_ratio,
             airtime_s=rec.airtime_s, energy_j=rec.energy_j,
-            mean_snr_db=rec.mean_snr_db)
+            mean_snr_db=rec.mean_snr_db,
+            **({} if s is None else s._asdict()),
+            transmitted=outcome.transmitted)
 
 
 def count_params(params: PyTree) -> int:

@@ -19,10 +19,13 @@ How the port differs from the reference:
   where the reference evaluates the same arithmetic inline per leaf.
 - Every random draw of a round is an explicit input: the batches, the
   eval batch and a `core/mdsl.RoundDraws` (the (W, 3) PSO coefficients,
-  the byzantine normals and the wire's seeds, keep, fade and noise; its
-  `perms` are unused and left empty). The port's runs draw them from a
-  torch.Generator (`sample_draws`); parity tests carry the reference's
-  across through numpy.
+  the byzantine normals and the wire's seeds, keep, fade, noise and
+  crash rows; its `perms` are unused and left empty). The port's runs
+  draw them from a torch.Generator (`sample_draws`); parity tests carry
+  the reference's across through numpy.
+- The straggler engine's buffer is f32 whatever the model's dtype and
+  is aggregated leaf by leaf (`comm.straggler.aggregate_and_drain`), as
+  the reference does.
 - One device: the reference's worker-axis sharding is not ported, and
   `round_idx` is a host int.
 
@@ -79,7 +82,8 @@ class DistSwarmState(NamedTuple):
     residual: PyTree                # (W, ...) uplink error-feedback state
     ps_residual: PyTree             # PS-side downlink error-feedback state
     phy: comm_phy.PhyState          # (W,) per-worker channel state
-    buffer: Any = None              # straggler buffer (engine not ported)
+    buffer: Any = None              # comm.straggler.StragglerBuffer (f32;
+    #                                 None while no deadline is set)
 
 
 def init_state(global_params: PyTree, cfg: DistSwarmConfig,
@@ -110,12 +114,14 @@ def init_state(global_params: PyTree, cfg: DistSwarmConfig,
 
 
 def sample_draws(gen: torch.Generator, cfg: DistSwarmConfig,
-                 params: PyTree, device) -> RoundDraws:
+                 params: PyTree, device, round_idx: int) -> RoundDraws:
     """One round's draws from the port's own generator: the coefficients
-    and the wire's as `core/mdsl.sample_round_draws` makes them, with no
-    epoch permutations (local_epochs 0)."""
+    and the wire's as `core/mdsl.sample_round_draws` makes them (the
+    crash rows of round `round_idx` included), with no epoch
+    permutations (local_epochs 0)."""
     return sample_round_draws(gen, MdslConfig(local_epochs=0, comm=cfg.comm),
-                              params, cfg.num_spatial, 0, device)
+                              params, cfg.num_spatial, 0, device,
+                              round_idx=round_idx)
 
 
 def _pipeline(cfg: DistSwarmConfig, algorithm: str,
@@ -227,8 +233,7 @@ def build_train_step(loss_fn: LossFn, cfg: DistSwarmConfig
                         global_params=state.global_params,
                         residual=state.residual,
                         ps_residual=state.ps_residual, draws=draws,
-                        phy=state.phy, buffer=state.buffer,
-                        round_idx=state.round_idx)
+                        phy=state.phy, buffer=state.buffer)
         del delta
         global_loss = _eval(loss_fn, out.global_params, eval_batch,
                             stacked=False)
@@ -291,8 +296,7 @@ def fedavg_train_step(loss_fn: LossFn, cfg: DistSwarmConfig):
                         global_params=state.global_params,
                         residual=state.residual,
                         ps_residual=state.ps_residual, draws=draws,
-                        phy=state.phy, buffer=state.buffer,
-                        round_idx=state.round_idx)
+                        phy=state.phy, buffer=state.buffer)
         del deltas
         global_loss = _eval(loss_fn, out.global_params, eval_batch,
                             stacked=False)

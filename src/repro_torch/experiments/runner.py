@@ -15,16 +15,20 @@ the reference, and restores both flags afterwards.
 
 Randomness: paper runs take their data from `run.seed`, and the initial
 params and every round's `RoundDraws` from one torch.Generator seeded
-with `run.seed + 1`. Mesh runs (`model.kind="mesh"`: M-DSL over W
-transformer workers, `core/swarm_dist`) take the initial params, every
-round's token batches and its draws from one torch.Generator seeded
-with `run.seed`. `build(..., data=, init_params=)` injects the
-reference's arrays, and a caller may replace `Prepared.draw` to inject
-the reference's draws (and, for mesh runs, batches).
+with `run.seed + 1`; a population run (`fleet.population`) draws its
+cohorts and catch-up normals from a generator of its own (keyed by
+`run.seed` and `population.POP_SALT`), so its engine sees the same
+draws as an unwrapped run. Mesh runs (`model.kind="mesh"`: M-DSL over
+W transformer workers, `core/swarm_dist`) take the initial params,
+every round's token batches and its draws from one torch.Generator
+seeded with `run.seed`. In both, the fault schedule's crash rows are
+keyed by (`comm.fault_seed`, round) alone (`comm.straggler.crash_draws`).
+`build(..., data=, init_params=)` injects the reference's arrays, and a
+caller may replace `Prepared.draw` to inject the reference's draws (and,
+for mesh runs, batches).
 
-Not ported yet (they raise NotImplementedError): the population
-wrapper, the obs event stream, mesh checkpoints (`run.ckpt_dir`), the
-straggler engine, and `sweep(jobs > 1)`.
+Not ported yet (they raise NotImplementedError): the obs event stream,
+mesh checkpoints (`run.ckpt_dir`) and `sweep(jobs > 1)`.
 """
 from __future__ import annotations
 
@@ -45,7 +49,9 @@ from repro_torch.configs.base import get_arch
 from repro_torch.configs.paper_cnn import paper_cnn, paper_resnet
 from repro_torch.core import losses as losses_mod
 from repro_torch.core import mdsl, noniid, swarm_dist
+from repro_torch.core import population as pop
 from repro_torch.core.mdsl import MdslConfig
+from repro_torch.core.pso import WorkerState
 from repro_torch.data import partition
 from repro_torch.data.partition import FederatedData
 from repro_torch.data.synthetic import CIFAR_LIKE, MNIST_LIKE
@@ -53,6 +59,7 @@ from repro_torch.experiments.spec import ExperimentSpec, override, to_dict
 from repro_torch.kernels import runtime
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.transformer import Transformer
+from repro_torch.pytree import tree_map
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts"
 SCHEMA_VERSION = 2
@@ -169,7 +176,7 @@ def _prepare_paper(spec: ExperimentSpec, device: torch.device,
     def draw(state):
         return mdsl.sample_round_draws(gen, cfg, state.global_params,
                                        d.num_workers, data.x.shape[1],
-                                       device)
+                                       device, round_idx=state.round_idx)
 
     def step(state, draws):
         return mdsl.mdsl_round(state, data.x, data.y, data.global_x,
@@ -180,6 +187,110 @@ def _prepare_paper(spec: ExperimentSpec, device: torch.device,
                     n_params=n_params, device=device,
                     aux={"data": data, "model": img_model, "eta": eta,
                          "cfg": cfg, "test_accuracy": test_accuracy})
+
+
+class _PopulationState(NamedTuple):
+    """The paper engine's state wrapped by the population scheduler: the
+    K-slot engine state, the P-device registry, the device ids in the K
+    slots and the host round counter."""
+    inner: Any               # SwarmTrainState over the K cohort slots
+    table: Any               # population.PopulationTable over P devices
+    cohort: torch.Tensor     # (K,) int32 device ids seated in the slots
+    t: int                   # next round index
+
+    @property
+    def global_params(self):
+        return self.inner.global_params
+
+
+def _reseat(inner, changed: torch.Tensor, phy):
+    """The engine state with the slots whose device `changed` reseated:
+    the newcomer starts at the global model with zero velocity, reset
+    bests, a zero uplink EF residual and no parked delta; every other
+    slot keeps its state bitwise. `phy` is the cohort's gathered rows."""
+    K = changed.shape[0]
+
+    def mix(fresh, old):
+        return tree_map(lambda fl, ol: torch.where(
+            changed.reshape((-1,) + (1,) * (fl.ndim - 1)), fl, ol),
+            fresh, old)
+
+    bcast = tree_map(lambda x: x.expand((K,) + tuple(x.shape)),
+                     inner.global_params)
+    inf = torch.full((K,), float("inf"), dtype=torch.float32,
+                     device=changed.device)
+    fresh_workers = WorkerState(
+        params=bcast, velocity=tree_map(torch.zeros_like, bcast),
+        best_params=bcast, best_loss=inf, prev_loss=inf)
+    buf = inner.buffer
+    if buf is not None:
+        # a parked late delta belongs to the device that uploaded it: a
+        # reseated slot's is cleared, so a stranger's stale update never
+        # drains into the newcomer's rounds
+        buf = buf._replace(
+            delta=mix(tree_map(torch.zeros_like, buf.delta), buf.delta),
+            age=torch.where(changed, torch.zeros_like(buf.age), buf.age))
+    return inner._replace(
+        workers=mix(fresh_workers, inner.workers),
+        residual=mix(tree_map(torch.zeros_like, inner.residual),
+                     inner.residual),
+        phy=phy, buffer=buf)
+
+
+def _wrap_population(prep: Prepared) -> Prepared:
+    """Lift a prepared K-worker paper run into a P-device fleet.
+
+    Each round draws the cohort and its catch-up normals from the
+    population's generator (the engine's draws are as in an unwrapped
+    run), samples the K-cohort, gathers its channel rows with lazy fading
+    catch-up, reseats the slots whose device changed (slot by slot, in
+    `sample_cohort`'s order: the newcomer starts at the global model with
+    zero velocity and reset bests, a zero uplink EF residual and no
+    parked delta), runs the engine's round unchanged, and scatters the
+    cohort's post-round scalars back into the table. Model state stays
+    O(K), the registry O(P) scalars.
+
+    P == K under the uniform policy seats the identity cohort, every
+    reseat `torch.where` returns its stored operand and the gather's
+    lag-0 rows pass through, so such runs are bit-identical to the
+    unwrapped engine. Worker data partitions and eta stay slot-resident,
+    as in the reference: device p seated in slot k trains on partition k.
+    """
+    spec = prep.spec
+    f, comm = spec.fleet, spec.comm
+    K = spec.data.num_workers
+    dev = prep.device
+    inner_step, inner_draw = prep.step, prep.draw
+    seed = int(np.random.SeedSequence([spec.run.seed, pop.POP_SALT])
+               .generate_state(1)[0])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(state: _PopulationState):
+        return (pop.population_draws(gen, comm, f.population, K,
+                                     f.cohort_policy, dev),
+                inner_draw(state.inner))
+
+    def step(state: _PopulationState, draws):
+        pdraws, idraws = draws
+        idx, phy = pop.schedule(state.table, state.t, pdraws, comm=comm,
+                                cohort_size=K, policy=f.cohort_policy)
+        inner = _reseat(state.inner, idx != state.cohort, phy)
+        inner, metrics = inner_step(inner, idraws)
+        table = pop.scatter_round(state.table, idx, inner.phy,
+                                  metrics.theta,
+                                  pop.residual_norms(inner.residual),
+                                  state.t)
+        return (_PopulationState(inner=inner, table=table, cohort=idx,
+                                 t=state.t + 1),
+                metrics._replace(cohort=idx))
+
+    table = pop.init_table(comm, f.population, dev)
+    state0 = _PopulationState(
+        inner=prep.state, table=table,
+        cohort=torch.arange(K, dtype=torch.int32, device=dev), t=0)
+    aux = dict(prep.aux, population=f.population,
+               table_bytes=pop.table_bytes(table))
+    return prep._replace(state=state0, step=step, draw=draw, aux=aux)
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +326,7 @@ def _prepare_mesh(spec: ExperimentSpec, device: torch.device,
         """(worker batches (W, B, S), eval batch (B, S), RoundDraws)."""
         return (batch_for((W,)), batch_for(()),
                 swarm_dist.sample_draws(gen, dcfg, state.global_params,
-                                        device))
+                                        device, round_idx=state.round_idx))
 
     def step(state, draws):
         return step_fn(state, *draws)
@@ -266,8 +377,11 @@ def _mesh_round(prep: Prepared, state, i: int, record: dict,
     t0 = time.perf_counter()
     state, info = prep.step(state, prep.draw(state))
     gl = float(info.global_loss)                     # syncs the device
+    transmitted = info.transmitted
     up, down = host_round_bytes(
-        prep.aux["dcfg"].comm, selected=info.mask.sum(),
+        prep.aux["dcfg"].comm,
+        selected=(transmitted if transmitted is not None
+                  else info.mask.sum()),
         bytes_up_jit=info.bytes_up,
         payload_up=record["payload_bytes_per_worker"],
         payload_down=record["downlink_bytes_per_worker"], num_workers=W)
@@ -280,17 +394,30 @@ def _mesh_round(prep: Prepared, state, i: int, record: dict,
            "energy_j": float(info.energy_j),
            "mean_snr_db": float(info.mean_snr_db),
            "step_time_s": time.perf_counter() - t0}
+    if transmitted is not None:
+        row["transmitted"] = float(transmitted)
+    row.update(_straggler_row(info, float))
     after = runtime.counts()
     row["launches"] = {k: n - before.get(k, 0) for k, n in after.items()
                        if n != before.get(k, 0)}
     for k, v in row.items():
-        record[k].append(v)
+        record.setdefault(k, []).append(v)
     if verbose:
         print(f"[mesh/{m.name}] step {i + 1}/{r.rounds} "
               f"global_loss={gl:.4f} selected={int(info.mask.sum())}/{W} "
               f"air={row['airtime_s']:.3f}s e={row['energy_j']:.3f}J "
               f"t={row['step_time_s']:.3f}s", flush=True)
     return state
+
+
+def _straggler_row(metrics, cast) -> dict:
+    """The round's straggler columns (none while no deadline is set), one
+    host read of the four device scalars."""
+    keys = ("late", "drained", "buffered", "held")
+    if metrics.late is None:
+        return {}
+    vals = torch.stack([getattr(metrics, k) for k in keys]).tolist()
+    return {k: cast(v) for k, v in zip(keys, vals)}
 
 
 def build(spec: ExperimentSpec, device=None,
@@ -310,10 +437,10 @@ def build(spec: ExperimentSpec, device=None,
                                       "need checkpoint/npz, which is not "
                                       "ported to repro_torch yet")
         return _prepare_mesh(spec, resolve_device(device), init_params)
+    prep = _prepare_paper(spec, resolve_device(device), data, init_params)
     if spec.fleet.population:
-        raise NotImplementedError("the population engine is not ported to "
-                                  "repro_torch yet")
-    return _prepare_paper(spec, resolve_device(device), data, init_params)
+        prep = _wrap_population(prep)
+    return prep
 
 
 @contextlib.contextmanager
@@ -353,14 +480,22 @@ def run_prepared(prep: Prepared, verbose: bool = True) -> RunResult:
               "uploaded_params": [], "bytes_up": [], "bytes_down": [],
               "airtime_s": [], "energy_j": [], "mean_snr_db": [],
               "round_time_s": []}
+    if spec.fleet.population:
+        record["population"] = spec.fleet.population
+        record["cohort_size"] = d.num_workers
+        record["cohort_policy"] = spec.fleet.cohort_policy
     metrics = None
     with _full_f32():
         for t in range(r.rounds):
             t0 = time.perf_counter()
             state, metrics = prep.step(state, prep.draw(state))
             acc = test_accuracy(state.global_params)   # syncs the device
+            # under fault injection only the alive selected workers
+            # transmit: the byte accounting keys off that count
+            transmitted = metrics.transmitted
             up, down = host_round_bytes(
-                comm, selected=metrics.selected_count,
+                comm, selected=(transmitted if transmitted is not None
+                                else metrics.selected_count),
                 bytes_up_jit=metrics.bytes_up,
                 payload_up=record["payload_bytes_per_worker"],
                 payload_down=record["downlink_bytes_per_worker"],
@@ -374,8 +509,17 @@ def run_prepared(prep: Prepared, verbose: bool = True) -> RunResult:
                    "energy_j": float(metrics.energy_j),
                    "mean_snr_db": float(metrics.mean_snr_db),
                    "round_time_s": time.perf_counter() - t0}
+            if transmitted is not None:
+                row["transmitted"] = int(transmitted)
+            row.update(_straggler_row(metrics, int))
+            if metrics.cohort is not None:
+                row["cohort"] = metrics.cohort.tolist()
             for k, v in row.items():
-                record[k].append(v)
+                record.setdefault(k, []).append(v)
+            if verbose and row.get("held"):
+                print(f"[straggler] round {t}: quorum hold — w_t frozen "
+                      f"(late={row.get('late', 0)} "
+                      f"buffered={row.get('buffered', 0)})", flush=True)
             if verbose and (t % r.log_every == 0 or t == r.rounds - 1):
                 print(f"[{a.algorithm}/{d.case}/{d.dataset}] "
                       f"round {t + 1}/{r.rounds} acc={acc:.3f} "

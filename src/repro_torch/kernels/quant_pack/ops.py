@@ -122,7 +122,7 @@ def _launch_quant_pack(x, residual, seeds, bits, name):
         None if res is None else res.data_ptr(), C, rows, bits, plan.cluster,
         plan.cta_rows, *plan.grid, runtime.stream_ptr(x))
     runtime.check(err, name)
-    runtime.note_launch(name)
+    runtime.note_launch(name, workers=C)
     return packed, scales, res
 
 
@@ -175,7 +175,7 @@ def dequant_unpack_2d(packed: torch.Tensor, scales: torch.Tensor, *,
                                    plan.threads, plan.parts, *plan.grid,
                                    runtime.stream_ptr(packed))
     runtime.check(err, "dequant_unpack")
-    runtime.note_launch("dequant_unpack")
+    runtime.note_launch("dequant_unpack", workers=C)
     return out
 
 

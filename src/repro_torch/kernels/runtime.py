@@ -43,6 +43,10 @@ SOURCES = ("quant_pack", "wire_agg", "flash_attention", "flash_attention_bwd",
 # adds one exactly where it launches its kernel (plain versions on CPU
 # tensors never count)
 _COUNTS: Counter = Counter()
+# the same, keyed by (name, C) for the wire kernels, whose leading dim is
+# the worker count: one kernel runs at C workers on the uplink and at 1
+# on the downlink, and a reader can tell those launches apart
+_BY_WORKERS: Counter = Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -59,16 +63,28 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def note_launch(name: str) -> None:
+def note_launch(name: str, workers: Optional[int] = None) -> None:
     _COUNTS[name] += 1
+    if workers is not None:
+        _BY_WORKERS[(name, workers)] += 1
 
 
 def counts() -> dict[str, int]:
     return dict(_COUNTS)
 
 
+def counts_by_workers() -> dict[str, dict[int, int]]:
+    """{name: {C: launches}} of the launches that named their worker
+    count, since the last reset_counts()."""
+    out: dict[str, dict[int, int]] = {}
+    for (name, c), n in sorted(_BY_WORKERS.items()):
+        out.setdefault(name, {})[c] = n
+    return out
+
+
 def reset_counts() -> None:
     _COUNTS.clear()
+    _BY_WORKERS.clear()
 
 
 def _nvcc() -> str:

@@ -146,7 +146,7 @@ def wire_agg_2d(packed: torch.Tensor, scales: torch.Tensor,
                           plan.smem,
                           runtime.stream_ptr(packed))
     runtime.check(err, "wire_agg")
-    runtime.note_launch("wire_agg")
+    runtime.note_launch("wire_agg", workers=C)
     return out
 
 

@@ -41,3 +41,18 @@ def test_target_changes_with_the_flags(tmp_path, monkeypatch):
     before = runtime._target("kern")
     monkeypatch.setattr(runtime, "NVCC_FLAGS", runtime.NVCC_FLAGS + ("-G",))
     assert runtime._target("kern") != before
+
+
+def test_counts_by_workers_tells_launch_shapes_apart():
+    """A wire kernel's launches are counted by name and, apart, by the
+    worker count they ran at; reset_counts clears both."""
+    runtime.reset_counts()
+    try:
+        for c in (50, 1, 50):
+            runtime.note_launch("quant_pack", workers=c)
+        runtime.note_launch("pso_update")
+        assert runtime.counts() == {"quant_pack": 3, "pso_update": 1}
+        assert runtime.counts_by_workers() == {"quant_pack": {1: 1, 50: 2}}
+    finally:
+        runtime.reset_counts()
+    assert runtime.counts() == {} and runtime.counts_by_workers() == {}
