@@ -53,10 +53,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      tensor-core kernel) 12 times and rglru_scan 26 times, decode
      neither (a warm-up pass and the timed pass: 24 and 52 in all);
      then profiles one more prefill and one decode step;
-     then flash_attention at StableLM-3B's head dim 80 (which runs in the
-     128 build, its padded columns zero): the prefill's shape (B 4, S
-     4096, 32 heads, MHA, causal) in bf16 and f32, each asserting its
-     route and timed beside SDPA; and StableLM-3B served at full width
+     then flash_attention at StableLM-3B's head dim 80 (bf16 in the
+     tensor-core forward's 80 build: Q.K^T as five k-slices, P.V as an
+     n64 and an n16 wgmma over a 16-column tail box): the prefill's shape
+     (B 4, S 4096, 32 heads, MHA, causal) in bf16 and f32, each asserting
+     its route and timed beside SDPA, and ragged hd-80 and hd-72 cases
+     (the tail box past S and past hd); and StableLM-3B served at full width
      the same way (batch 4, prompt 4096, gen 32): each prefill launches
      the hd-80 forward 32 times, decode none (64 in all);
   9. the mesh slice's kernels against their plain versions on the card:
@@ -86,9 +88,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      (the _f32 counters) never; then profiles one more round; then the
      training forward and the backward at StableLM-3B's hd 80 (B 2, S
      2048, 32 heads, MHA, causal) and at RecurrentGemma-9B's hd 256 (B 2,
-     S 2048, 16 heads over 1, window 2048; the CUDA-core kernels, no path
-     runs it yet), bf16 and f32, as the other backward cases, the bf16
-     backward timed beside SDPA's backward alone; and one M-DSL round of
+     S 2048, 16 heads over 1, window 2048; bf16 in the tensor cores' 256
+     build, no path runs it yet), bf16 and f32, and a ragged hd-256 GQA
+     case, as the other backward cases, the bf16 backward timed beside
+     SDPA's backward alone (and at hd 256 beside the CUDA-core kernels
+     it replaces); and one M-DSL round of
      StableLM-3B at full width with the depth cut to 2 layers (W 2, B 1,
      S 2048, bf16; after a warm-up round) through `Transformer.loss`:
      launches as phase 11's per layer, losses finite;
@@ -597,10 +601,9 @@ def flash_out_check(label, got, want):
 
 def flash_route(dtype: str, hd: int, bwd: bool = False) -> str:
     """The counter a flash launch adds to: the tensor-core kernels take
-    bf16 at the head dims that run in their 64, 128 or 256 builds (33 to
-    256 forward, 33 to 128 backward; hd % 8 == 0); the CUDA-core ones
-    the rest."""
-    tc = dtype == "bfloat16" and 32 < hd <= (128 if bwd else 256)
+    bf16 at hd 33 to 256 (hd % 8 == 0), forward and backward; the
+    CUDA-core ones f32 and bf16 at hd <= 32."""
+    tc = dtype == "bfloat16" and 32 < hd <= 256
     name = "flash_attention_bwd" if bwd else "flash_attention"
     return name if tc else name + "_f32"
 
@@ -1119,9 +1122,15 @@ def flash_bwd_checks(dev):
               bool(fops._bwd_lib().fa_bwd_supports_head_dim(hd)) == want,
               f"flash libraries: head_dim {hd} "
               f"{'refused' if want else 'accepted'}")
+        # the tensor-core forward's build: the library's and the wrappers'
+        build = fops.tc_forward_head_dim(hd) if want and hd > 32 else 0
+        check(fops._lib().fa_tc_build_head_dim(hd) == build,
+              f"flash forward library: head_dim {hd} runs in build "
+              f"{fops._lib().fa_tc_build_head_dim(hd)}, expected {build}")
     print("[check] flash libraries, forward and backward, and the wrappers' "
           "rule: head dims 8, 16, ..., 256 accepted, every other in 0-264 "
-          "refused", flush=True)
+          "refused; the tensor-core forward's builds as "
+          "`tc_forward_head_dim` (hd 72 and 80 in the 80 build)", flush=True)
     err = max(r[0] for r in results)
     q, k, v, out, do, lse, kw = results[0][1]
     B, S, H, hd = q.shape
@@ -1410,14 +1419,22 @@ def profile_mesh(spec) -> None:
 HD_ARCH = "stablelm-3b"          # d_model 2560 over 32 heads: hd 80, MHA
 HD_SERVE_BATCH, HD_SERVE_PROMPT, HD_SERVE_GEN = 4, 4096, 32
 HD_MESH_LAYERS, HD_MESH_B, HD_MESH_S = 2, 1, 2048
-# StableLM-3B's attention: the serve prefill's forward and the training
-# shape's forward + backward, bf16 (tensor cores, run in the 128 build)
-# and f32; RecurrentGemma-9B's hd-256 backward (16 heads over 1, window
-# 2048), which no model path runs yet (its training waits for the
-# scan's backward)
+# StableLM-3B's attention: the serve prefill's forward (bf16 in the
+# tensor-core forward's 80 build) and the training shape's forward +
+# backward (the backward in the 128 build), bf16 and f32; RecurrentGemma-
+# 9B's hd-256 backward (16 heads over 1, window 2048; the tensor cores'
+# 256 build, two passes and head groups), which no model path runs yet
+# (its training waits for the scan's backward). The ragged cases (Sq not
+# a multiple of 64, a query offset, kv_len < Sk, GQA, fully masked rows)
+# reach the hd-80 tail box past S and the hd-256 build's edges; they are
+# checked, not timed.
 HD80_FWD_CASES = [
     ("hd80", 4, 4096, 4096, 32, 32, 80, "bfloat16", True, 0, None, None),
     ("hd80 f32", 4, 4096, 4096, 32, 32, 80, "float32", True, 0, None, None),
+    ("hd80 ragged", 2, 300, 1000, 6, 2, 80, "bfloat16", True, 128, 700,
+     800),
+    ("hd72 ragged", 1, 333, 333, 4, 4, 72, "bfloat16", False, 50, None,
+     None),
 ]
 HD_BWD_CASES = [
     ("hd80", 2, 2048, 2048, 32, 32, 80, "bfloat16", True, 0, None, None),
@@ -1425,6 +1442,8 @@ HD_BWD_CASES = [
     ("hd256", 2, 2048, 2048, 16, 1, 256, "bfloat16", True, 2048, None, None),
     ("hd256 f32", 2, 2048, 2048, 16, 1, 256, "float32", True, 2048, None,
      None),
+    ("hd256 ragged", 2, 300, 1000, 4, 2, 256, "bfloat16", True, 128, 700,
+     800),
 ]
 
 
@@ -1442,6 +1461,11 @@ def hd80_forward_checks(dev):
     row = {}
     for case in HD80_FWD_CASES:
         err, (q, k, v, kw) = flash_case_check(dev, case, g)
+        if "ragged" in case[0]:
+            row["ragged_max_abs_err"] = max(row.get("ragged_max_abs_err",
+                                                    0.0), err)
+            del q, k, v
+            continue
         B, S, H, hd = q.shape
         pairs = B * H * S * (S + 1) // 2
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
@@ -1571,9 +1595,24 @@ def hd_backward_checks(dev):
     rows = {}
     for case in HD_BWD_CASES:
         err, inputs, _ = flash_bwd_case(dev, case, g)
-        if case[7] == "bfloat16":
+        if "ragged" in case[0]:
+            rows[case[0].split()[0]]["ragged_max_abs_err"] = err
+        elif case[7] == "bfloat16":
             rows[case[0]] = dict(time_flash_bwd(case[0], *inputs),
                                  max_abs_err=err)
+            if case[6] == 256:
+                # the kernels this build replaces (the CUDA-core ones, the
+                # port's bf16 hd-256 route before it), same inputs
+                q, k, v, out, do, lse, kw = inputs
+                cc = graph_ms(lambda: cuda_core_backward(
+                    q, k, v, out, do, lse, kw["causal"], kw["window"],
+                    kw["q_offset"]), 2)
+                rows[case[0]]["cuda_core_ms"] = cc
+                print(f"[time] flash backward {case[0]}: the CUDA-core "
+                      f"kernels it replaces {cc:.4f} ms/launch, the "
+                      f"tensor-core build {rows[case[0]]['ms']:.4f} ms",
+                      flush=True)
+                del q, k, v, out, do, lse
         else:
             rows[case[0].split()[0]]["f32_max_abs_err"] = err
         del inputs
@@ -2144,7 +2183,7 @@ def main() -> None:
     fa = next(k for k in kernels if k["name"] == "flash_attention")
     kernels.append(dict(
         fa, name="flash_attention (hd 80, StableLM-3B serve shape)",
-        shape="bf16 (4, 4096, 32, 80), MHA, causal; runs in the 128 build",
+        shape="bf16 (4, 4096, 32, 80), MHA, causal; the 80 build",
         launches=hd80_serve_counts["flash_attention"],
         launches_mesh=hd80_mesh_counts["flash_attention"],
         cuda_core_ms=None, **hd80_row))
@@ -2156,10 +2195,10 @@ def main() -> None:
         f32_ms=None, library_fwd_bwd_ms=None, **hd_bwd_rows["hd80"]))
     kernels.append(dict(
         bwd, name="flash_attention_bwd (hd 256, RecurrentGemma-9B shape)",
-        shape="bf16 (2, 2048, 16, 256), 1 kv head, window 2048",
-        cores="CUDA cores (dkdv_kernel, dq_kernel; eight threads a row)",
+        shape="bf16 (2, 2048, 16, 256), 1 kv head, window 2048; the 256 "
+              "build (two passes, head groups)",
         launches=0, path="none yet: RecurrentGemma-9B training waits for "
-                         "the scan's backward", cuda_core_ms=None,
+                         "the scan's backward",
         f32_ms=None, library_fwd_bwd_ms=None, **hd_bwd_rows["hd256"]))
     # this slice: on each kernel's first row, its launches (at every
     # shape) in the int4 straggler run, the int4 population run and the

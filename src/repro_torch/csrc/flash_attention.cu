@@ -10,9 +10,13 @@
 //                                              ops.py folded in
 //
 // Head dims: any hd % 8 == 0 up to 256, each in the next built one of 32
-// (CUDA cores only), 64, 128 and 256, its columns from hd on zeros that
-// are never stored (flash_wgmma.cuh, `padded_head_dim`); StableLM-3B's
-// hd 80 runs in the 128 instantiation.
+// (CUDA cores only), 64, 80 (tensor cores only), 128 and 256, its columns
+// from hd on zeros that are never stored (flash_wgmma.cuh,
+// `padded_head_dim`, `fwd_tc_head_dim`); StableLM-3B's hd 80 runs in the
+// tensor-core kernel's 80 instantiation, which issues the products of
+// 80 columns, not 128: Q.K^T as five k-slices, P.V as an n64 wgmma over
+// the first 64-column box and an n16 one over a 16-column tail box in
+// the 32-byte swizzle (`Tile`).
 //
 // Layout: q and out (B, Sq, H, hd), k and v (B, Sk, K, hd), contiguous,
 // f32 or bf16. Query row i has absolute position q_offset + i; key j is
@@ -28,7 +32,9 @@
 // pair (Q.K^T and P.V) at the bf16 tensor-core peak, 989 TFLOP/s: at
 // RecurrentGemma-9B's prefill (B 4, H 16 over 1 kv head, hd 256, S 4096,
 // window 2048; 4.03e8 pairs) 0.417 ms; at SmolLM-360M's training shape
-// (B 2, H 15 over 5, hd 64, S 2048, causal; 6.29e7 pairs) 0.016 ms.
+// (B 2, H 15 over 5, hd 64, S 2048, causal; 6.29e7 pairs) 0.016 ms; at
+// StableLM-3B's prefill (B 4, H 32, hd 80, S 4096, causal; 1.07e9 pairs)
+// 0.347 ms.
 //
 // The bf16 kernel (fwd_tc_kernel) runs both products on the tensor
 // cores (wgmma, flash_wgmma.cuh) and issues 8 hd operations a pair (10
@@ -52,20 +58,23 @@
 // - One block of three warpgroups, the blocks that see the most keys
 //   launched first. The producer warpgroup gives up its
 //   registers (setmaxnreg 24); one of its threads loads the Q tile once
-//   and then keeps a ring of 2 (hd 256) or 3 K/V stages of 64 keys in
-//   flight by TMA (4D maps over (hd, heads, S, B), so a ragged tile
-//   reads zeros past S, never the next batch), each stage behind a
-//   "full" and an "empty" mbarrier.
-// - Two consumer warpgroups (setmaxnreg 240) take every stage. At hd 64
-//   and 128 a block has 128 query rows, 64 a consumer, with all hd
-//   columns of O. At hd 256 a block has 64 rows and each consumer half
-//   of O's columns (both compute S): O plus its per-tile partial is
-//   2 x 64 f32 registers a thread, where all 256 columns would need 256.
+//   and then keeps a ring of 2 (hd 256), 3 (hd 64, 128) or 4 (hd 80)
+//   K/V stages of 64 keys in flight by TMA (4D maps over (hd, heads, S,
+//   B), so a ragged tile reads zeros past S, never the next batch), each
+//   stage behind a "full" and an "empty" mbarrier.
+// - Two consumer warpgroups (setmaxnreg 240) take every stage. At hd 64,
+//   80 and 128 a block has 128 query rows, 64 a consumer, with all hd
+//   columns of O (at hd 80 O and its partial are 2 x 40 registers). At
+//   hd 256 a block has 64 rows and each consumer half of O's columns
+//   (both compute S): O plus its per-tile partial is 2 x 64 f32
+//   registers a thread, where all 256 columns would need 256.
 // - Per stage: S = Q.K^T by hd / 16 wgmmas from shared memory; the mask
 //   on boundary tiles only (a tile whose every pair is valid skips it);
 //   the online max and sum in f32 on the accumulator fragment, four
-//   lanes a row, expf as in the f32 kernel; P split in registers; the
-//   partial P.V by 3 x 4 register-A wgmmas with V read MN-major.
+//   lanes a row, p = 2^(s scale log2(e) - m scale log2(e)) by the SFU
+//   (`ex2`; the f32 kernel keeps expf); P split in registers; the
+//   partial P.V by 3 x 4 register-A wgmmas with V read MN-major (at hd
+//   80 each an n64 and an n16 wgmma, `wgmma_rs_tile`).
 // - Rows with no valid key keep p = 0 (the mask selects, it does not
 //   add -inf), so l = 0, out = 0 and lse = -inf, with no NaN.
 //
@@ -74,7 +83,7 @@
 // head, batch), four threads a row each holding an interleaved quarter
 // of hd, kv tiles of 32 keys staged in shared memory as f32, a score the
 // sum of four quarter dot products (two xor shuffles).
-// Build without --use_fast_math (expf, IEEE division).
+// Build without --use_fast_math (the f32 kernel's expf, IEEE division).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -308,21 +317,25 @@ int dispatch(int hd, const void* q, const void* k, const void* v, void* out,
   }
 }
 
-// -- the tensor-core kernel: bf16 at hd 64, 128 and 256 ------------------
+// -- the tensor-core kernel: bf16 at hd 64, 80, 128 and 256 --------------
 
 constexpr int kTcThreads = 384;   // producer + two consumer warpgroups
 
-// hd 64 and 128: each consumer warpgroup owns 64 query rows and all hd
-// output columns. hd 256: both own the same 64 rows, half the columns
+// hd 64, 80 and 128: each consumer warpgroup owns 64 query rows and all
+// hd output columns. hd 256: both own the same 64 rows, half the columns
 // each (both compute S), so that O and its per-tile partial fit in
-// registers.
+// registers. At hd 80 a tile is a 64-column box and a 16-column tail
+// box (10 KiB), so Q.K^T is 5 k-slices and P.V 80 columns: 320 column
+// units of MMA a (query, key) pair against the 128 build's 512.
 template <int HD>
 struct FwdTc {
   static constexpr int kSplit = HD == 256 ? 2 : 1;
   static constexpr int kRows = 128 / kSplit;      // query rows a block
   static constexpr int kCols = HD / kSplit;       // O columns a consumer
-  static constexpr int kTile = fa_tc::kTileRows * HD * 2;   // 64 rows
-  static constexpr int kStages = HD == 256 ? 2 : 3;
+  static constexpr int kTile = fa_tc::Tile<HD>::kBytes;     // 64 rows
+  // the ring fills what shared memory the block has: 2 stages of 64 KiB
+  // at hd 256, 3 of 32 KiB at 128, 4 of 20 KiB at 80
+  static constexpr int kStages = HD == 256 ? 2 : HD == 80 ? 4 : 3;
   static constexpr int kQ = kRows / 64 * kTile;
   static constexpr int kSmem =
       1024 + kQ + 2 * kStages * kTile + 8 * (1 + 2 * kStages);
@@ -333,6 +346,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tq_tail,
+              const __grid_constant__ CUtensorMap tk_tail,
+              const __grid_constant__ CUtensorMap tv_tail,
               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
               int Sq, int Sk, int H, int K, int hd, int causal, int window,
               int q_offset, int kv_len, float scale) {
@@ -376,16 +392,17 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(q_full, L::kQ);
       for (int r = 0; r < L::kRows / 64; ++r)
         tma_load_tile<HD>(sq + r * L::kTile, &tq, q_full, h, q_first + 64 * r,
-                          b);
+                          b, &tq_tail);
       int stage = 0;
       uint32_t phase = 0;
       for (int tile = t_begin; tile < t_end; ++tile) {
         mbar_wait(&empty[stage], phase ^ 1);
         uint8_t* kt = skv + stage * 2 * L::kTile;
         mbar_expect_tx(&full[stage], 2 * L::kTile);
-        tma_load_tile<HD>(kt, &tk, &full[stage], kh, tile * kTileRows, b);
+        tma_load_tile<HD>(kt, &tk, &full[stage], kh, tile * kTileRows, b,
+                          &tk_tail);
         tma_load_tile<HD>(kt + L::kTile, &tv, &full[stage], kh,
-                          tile * kTileRows, b);
+                          tile * kTileRows, b, &tv_tail);
         if (++stage == L::kStages) {
           stage = 0;
           phase ^= 1;
@@ -404,7 +421,9 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
     float o[NC / 2];
 #pragma unroll
     for (int i = 0; i < NC / 2; ++i) o[i] = 0.f;
+    // the running max m of the unscaled scores and sum l of each row
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    const float c = scale * kLog2e;
     mbar_wait(q_full, 0);
     int stage = 0;
     uint32_t phase = 0;
@@ -412,21 +431,16 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int k0 = tile * kTileRows;
       mbar_wait(&full[stage], phase);
       const uint8_t* kt = skv + stage * 2 * L::kTile;
-      float s[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      float s[32];    // the first wgmma overwrites it
       wg_fence();
       gemm_ss<HD>(s, qt, kt);
       wg_commit();
       wg_wait_all();
       fence_regs(s);
 
-      // scale; the mask only where some pair of the tile is invalid
+      // the mask only where some pair of the tile is invalid
       uint32_t valid = 0xffffffffu;
-      if (tile_all_valid(row0, k0, Sq, kv_end, causal, window, q_offset)) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) s[i] *= scale;
-      } else {
+      if (!tile_all_valid(row0, k0, Sq, kv_end, causal, window, q_offset)) {
         valid = 0u;
 #pragma unroll
         for (int i = 0; i < 32; ++i) {
@@ -435,22 +449,28 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
           bool ok = key < kv_end;
           if (causal) ok = ok && key <= pos;
           if (window > 0) ok = ok && key > pos - window;
-          s[i] = ok ? s[i] * scale : kNegInf;
+          s[i] = ok ? s[i] : kNegInf;
           valid |= (ok ? 1u : 0u) << i;
         }
       }
-      // online softmax, rows ra (r = 0) and ra + 8 (r = 1)
+      // online softmax, rows ra (r = 0) and ra + 8 (r = 1), on the
+      // unscaled scores (scale > 0: the same max): p = 2^(s c - m c),
+      // alpha = 2^((m_old - m) c), exactly 1 while a row has seen no
+      // valid key (m_old = m = kNegInf)
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int i = 0; i < 32; ++i)
         mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
       mx[0] = quad_max(mx[0]);
       mx[1] = quad_max(mx[1]);
-      const float alpha[2] = {expf(m[0] - mx[0]), expf(m[1] - mx[1])};
+      const float alpha[2] = {ex2((m[0] - mx[0]) * c),
+                              ex2((m[1] - mx[1]) * c)};
+      const float mc[2] = {mx[0] * c, mx[1] * c};
       float ps[2] = {0.f, 0.f};
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        s[i] = ((valid >> i) & 1u) ? expf(s[i] - mx[(i >> 1) & 1]) : 0.f;
+        s[i] = ((valid >> i) & 1u) ? ex2(fmaf(s[i], c, -mc[(i >> 1) & 1]))
+                                   : 0.f;
         ps[(i >> 1) & 1] += s[i];
       }
 #pragma unroll
@@ -467,16 +487,13 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       uint32_t pf[4][3][4];
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) to_frag<3>(s, kk, pf[kk]);
-      float pv[NC / 2];
-#pragma unroll
-      for (int i = 0; i < NC / 2; ++i) pv[i] = 0.f;
+      float pv[NC / 2];   // the first wgmma overwrites it
       wg_fence();
-      fence_regs(pv);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
         for (int t = 0; t < 3; ++t)
-          wgmma_rs<NC>(pv, pf[kk][t], desc_mn(vt, kk), 1);
+          wgmma_rs_tile<NC>(pv, pf[kk][t], vt, kk, kk + t > 0);
       }
       wg_commit();
       wg_wait_all();
@@ -507,7 +524,8 @@ fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
       // the row's log-sum-exp, for the backward (-inf: no valid key)
       if (lse != nullptr && half == 0 && (tid & 3) == 0) {
         lse[(static_cast<size_t>(b) * H + h) * Sq + row] =
-            l[r] > 0.f ? m[r] + logf(l[r]) : __int_as_float(0xff800000);
+            l[r] > 0.f ? m[r] * scale + logf(l[r])
+                       : __int_as_float(0xff800000);
       }
     }
   }
@@ -523,6 +541,13 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   int e = fa_tc::make_map(&tq, q, hd, H, Sq, B);
   if (e == 0) e = fa_tc::make_map(&tk, k, hd, K, Sk, B);
   if (e == 0) e = fa_tc::make_map(&tv, v, hd, K, Sk, B);
+  // the tail boxes' maps (hd 80 build); unused copies elsewhere
+  CUtensorMap tq_tail = tq, tk_tail = tk, tv_tail = tv;
+  if (fa_tc::Tile<HD>::kTail > 0) {
+    if (e == 0) e = fa_tc::make_map(&tq_tail, q, hd, H, Sq, B, true);
+    if (e == 0) e = fa_tc::make_map(&tk_tail, k, hd, K, Sk, B, true);
+    if (e == 0) e = fa_tc::make_map(&tv_tail, v, hd, K, Sk, B, true);
+  }
   if (e != 0) return e;
   // opt in to the dynamic shared memory once, before the first launch
   // (outside any CUDA-graph capture that follows it)
@@ -536,7 +561,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   }
   const dim3 grid(H, B, (Sq + L::kRows - 1) / L::kRows);
   fwd_tc_kernel<HD><<<grid, kTcThreads, L::kSmem, s>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
+      tq, tk, tv, tq_tail, tk_tail, tv_tail,
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse),
       Sq, Sk, H, K, hd, causal, window, q_offset, kv_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -568,10 +594,16 @@ extern "C" int fa_flash_attention(const void* q, const void* k, const void* v,
 }
 
 // Head dims the tensor-core kernel takes (bf16 only): those that run in
-// its 64, 128 or 256 instantiation. The wrapper routes other bf16 head
-// dims (hd <= 32) and f32 to fa_flash_attention.
+// its 64, 80, 128 or 256 instantiation. The wrapper routes other bf16
+// head dims (hd <= 32) and f32 to fa_flash_attention.
 extern "C" int fa_tc_supports_head_dim(int hd) {
   return fa_tc::head_dim_ok(hd) && hd > 32;
+}
+
+// The build of the tensor-core kernel that head dim hd runs in (64, 80,
+// 128 or 256), 0 where it has none.
+extern "C" int fa_tc_build_head_dim(int hd) {
+  return fa_tc_supports_head_dim(hd) ? fa_tc::fwd_tc_head_dim(hd) : 0;
 }
 
 // The bf16 tensor-core forward: q, k, v, out bf16 with 16-byte aligned
@@ -587,9 +619,12 @@ extern "C" int fa_flash_attention_tc(const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   if (!fa_tc_supports_head_dim(hd))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (fa_tc::padded_head_dim(hd)) {
+  switch (fa_tc::fwd_tc_head_dim(hd)) {
     case 64:
       return launch_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,
+                           window, q_offset, kv_len, scale, s);
+    case 80:
+      return launch_tc<80>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,
                            window, q_offset, kv_len, scale, s);
     case 128:
       return launch_tc<128>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,

@@ -26,33 +26,35 @@
 //      dS = P * (dO V^T - dsum);
 //   3. dQ: one block per (query rows, head, batch) walks the kv tiles
 //      its rows see and accumulates dQ += dS K * scale.
-// Each output element is summed by one thread in a fixed order: no
-// atomics, so the result is the same from run to run.
+// (The bf16 kernels split step 2's query heads into groups where its
+// grid would be small, and add the groups' f32 sums in a fourth launch,
+// reduce_kernel: `BwdTc`.) Each output element is summed by one thread
+// in a fixed order: no atomics, so the result is the same from run to
+// run.
 //
 // What bounds it: operations. Counted as 10 hd a unmasked (query, key)
 // pair (S, dP, dV, dK, dQ) at the bf16 tensor-core peak, 989 TFLOP/s:
 // at SmolLM-360M's training shape (B 2, H 15 over 5, hd 64, S 2048,
-// causal; 6.29e7 pairs) 0.041 ms.
+// causal; 6.29e7 pairs) 0.041 ms; at RecurrentGemma-9B's attention (B 2,
+// H 16 over 1, hd 256, S 2048, window 2048; 6.71e7 pairs) 0.174 ms.
 //
 // Head dims: any hd % 8 == 0 up to 256, each in the next built one of
-// 32, 64, 128 (both routes) and 256 (the CUDA-core kernels only), its
-// columns from hd on zeros that are never stored (flash_wgmma.cuh,
-// `padded_head_dim`): StableLM-3B's hd 80 runs in the tensor-core
-// kernels' 128 instantiation, RecurrentGemma-9B's hd 256 in the CUDA-core
-// kernels.
+// 32, 64, 128 and 256 (both routes), its columns from hd on zeros that
+// are never stored (flash_wgmma.cuh, `padded_head_dim`): StableLM-3B's
+// hd 80 runs in the tensor-core kernels' 128 instantiation.
 //
-// The bf16 kernels (dkdv_tc_kernel, dq_tc_kernel; hd 40-128) run
+// The bf16 kernels (dkdv_tc_kernel, dq_tc_kernel; hd 40-256) run
 // all products on the tensor cores (wgmma, flash_wgmma.cuh) and issue
 // 20 hd operations a pair, not 10 hd: 12 hd in dkdv (S^T, dP^T, then dV
-// and dK in two terms each; 16 hd at hd 128, below) and 8 hd in dq (S
-// and dP again, dQ in two terms). S and dP take bf16 operands exactly
-// (f32 accumulation), but P and dS rounded once to bf16 miss the
-// backward's rule (2 bf16 ulps of the plain f32 backward, ulp floored at
-// 2^-12 of the largest gradient) at ~7% of the elements of each gradient
-// at S 2048; split into two bf16 terms (hi + the rounded remainder) they
-// match unsplit f32 within it (tests/test_torch_flash_attention_bwd.py
-// emulates it). So each of dV += P^T.dO, dK += dS^T.Q and dQ += dS.K is
-// two wgmmas.
+// and dK in two terms each; 16 hd at hd 128 and 20 hd at hd 256, below)
+// and 8 hd in dq (S and dP again, dQ in two terms; 12 hd at hd 256).
+// S and dP take bf16 operands exactly (f32 accumulation), but P and dS
+// rounded once to bf16 miss the backward's rule (2 bf16 ulps of the
+// plain f32 backward, ulp floored at 2^-12 of the largest gradient) at
+// ~7% of the elements of each gradient at S 2048; split into two bf16
+// terms (hi + the rounded remainder) they match unsplit f32 within it
+// (tests/test_torch_flash_attention_bwd.py emulates it). So each of
+// dV += P^T.dO, dK += dS^T.Q and dQ += dS.K is two wgmmas.
 //
 // The tensor cores' adds truncate: a dK chain over every tile drifted
 // past the rule at the mesh shape, a chain over one tile stays within
@@ -62,10 +64,10 @@
 // What that design does:
 // - Blocks of three warpgroups: a producer warpgroup (setmaxnreg 24),
 //   one of whose threads loads the block's fixed tiles once and then a
-//   ring of 3 stages by TMA (4D maps over (hd, heads, S, B): ragged
-//   tiles read zeros past S, never the next batch) and 1D bulk copies
-//   (lse, dsum), behind "full" and "empty" mbarriers; two consumer
-//   warpgroups (setmaxnreg 240).
+//   ring of 3 stages (2 at hd 256) by TMA (4D maps over (hd, heads, S,
+//   B): ragged tiles read zeros past S, never the next batch) and 1D bulk
+//   copies (lse, dsum), behind "full" and "empty" mbarriers; two
+//   consumer warpgroups (setmaxnreg 240).
 // - dkdv_tc_kernel, one block per (64 keys, kv head, batch), the blocks
 //   that see the most query rows launched first: K and V stay in shared
 //   memory; each stage holds 64 query rows of Q and dO and their lse and
@@ -78,26 +80,25 @@
 //   order): the heaviest block's chain of (head, query tile) steps is
 //   split in two. At hd 128 both take every stage with half the columns
 //   of dK and dV each (both compute S^T and dP^T), so that dK, dV and a
-//   partial fit in registers.
+//   partial fit in registers. At hd 256 a block computes dV or dK (two
+//   passes in one launch, twice the blocks), both consumers every stage
+//   with 128 of its columns each (`BwdTc`).
 // - dq_tc_kernel, one block per (128 query rows, head, batch), 64 a
-//   consumer, the blocks that see the most keys launched first: Q and dO
-//   stay; each stage holds 64 keys of K and V.
+//   consumer (at hd 256 64 rows, half the columns a consumer), the
+//   blocks that see the most keys launched first: Q and dO stay; each
+//   stage holds 64 keys of K and V.
 //   S = Q.K^T, dP = dO.V^T, dS = P * (dP - dsum) in registers,
 //   dQ += dS.K (K read MN-major).
 // - The mask only on tiles where some pair is invalid (rows past Sq
 //   included); elsewhere p needs no select.
 //
-// The f32 kernels (dkdv_kernel, dq_kernel; also bf16 at hd <= 32 and
-// 136-256) run on the CUDA cores in f32: four threads share a key row
-// (dkdv) or a query row (dq), each holding an interleaved quarter of hd
-// in registers; dot products are the sum of the four quarters (two xor
+// The f32 kernels (dkdv_kernel, dq_kernel; also bf16 at hd <= 32) run
+// on the CUDA cores in f32: four threads share a key row (dkdv) or a
+// query row (dq), each holding an interleaved quarter of hd in
+// registers; dot products are the sum of the four quarters (two xor
 // shuffles); query or kv tiles are staged in shared memory as f32. At
 // hd 256 eight threads share a row (`F32Bwd`): a quarter of k, v, dk
-// and dv would take 256 registers a thread. The tensor-core kernels'
-// hd-256 backward would keep 64 x 128 of dK and of dV a consumer plus a
-// fresh per-tile partial, past the 240 registers a consumer has; no
-// model path trains at hd 256 yet (RecurrentGemma-9B's training waits
-// for the scan's backward), so the CUDA-core kernels carry it.
+// and dv would take 256 registers a thread.
 // Build without --use_fast_math (expf).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -492,31 +493,55 @@ int dispatch(int hd, const void* q, const void* k, const void* v,
   }
 }
 
-// -- the tensor-core kernels: bf16 at hd 64 and 128 ----------------------
+// -- the tensor-core kernels: bf16 at hd 64, 128 and 256 -----------------
 
 constexpr int kTcThreads = 384;   // producer + two consumer warpgroups
-constexpr int kTcRows = 128;      // query rows a block (dq)
 constexpr int kTcStep = 64;       // query rows (dkdv) or keys (dq) a stage
-constexpr int kTcStages = 3;
 
 // dkdv: a block has 64 keys. At hd 64 its two consumer warpgroups take
 // alternate query tiles, each with all columns of dK and dV, and add
 // their sums at the end; at hd 128 both take every tile, each with half
 // the columns (both compute S^T and dP^T), so that dK, dV and a partial
-// fit in registers. dq: 128 query rows a block, 64 and all columns a
-// consumer.
+// fit in registers. At hd 256 half the columns of both would not (2 x 64
+// + a 64-register partial + S^T and dP^T: ~256 of a consumer's 240), so
+// a block computes one of them (`kTwoPass`; the grid's first dimension
+// names the pass): dV (S^T, P^T, dV += P^T.dO) or dK (S^T and dP^T,
+// dS^T, dK += dS^T.Q), each consumer 128 of its columns: 64 registers
+// of the gradient, 64 of the partial, 64 of S^T and dP^T. That adds one
+// S^T a pair. dq: 128 query rows a block, 64 and all columns a consumer;
+// at hd 256 64 rows, half the columns a consumer (both compute S, dP).
+// Shared memory: 2 fixed tiles (K, V; dq's Q and dO: 4 at 128 rows) and
+// stages of 2 tiles, 3 stages (2 at hd 256, where a tile is 32 KiB:
+// 192 KiB in all).
+//
+// Head groups (`head_groups`): a dkdv block walks the G = H / K query
+// heads of its kv head, so a grid of few kv heads and keys has too few
+// blocks for the card, and under a causal mask its first key blocks
+// carry most of the work (RecurrentGemma-9B's training shape: 1 kv
+// head, 32 key blocks, 2 passes, 2 batches: 128 blocks, the heaviest 32
+// query tiles x 16 heads). Then the G heads are split into groups, a
+// block each, whose f32 partial sums of dK and dV go to scratch and are
+// added in group order by reduce_kernel (no atomics: the same result
+// from run to run).
 template <int HD>
 struct BwdTc {
   static constexpr int kTile = fa_tc::kTileRows * HD * 2;   // 64 rows
   static constexpr bool kAlternate = HD == 64;              // dkdv
+  static constexpr bool kTwoPass = HD == 256;               // dkdv
   static constexpr int kCols = kAlternate ? HD : HD / 2;    // dkdv
-  // 4 fixed tiles at most (dq: 2 x 64 rows of Q and of dO), stages of 2
-  // tiles, the stages' lse and dsum (dkdv), the barriers
-  static constexpr int kSmem = 1024 + 4 * kTile + kTcStages * 2 * kTile +
-                               kTcStages * 512 + 8 * (1 + 2 * kTcStages);
+  static constexpr int kGrads = kTwoPass ? 1 : 2;           // dkdv: dV, dK
+  static constexpr int kRowsQ = HD == 256 ? 64 : 128;       // dq
+  static constexpr int kColsQ = kRowsQ == 128 ? HD : HD / 2;   // dq
+  static constexpr int kStages = HD == 256 ? 2 : 3;
+  // the fixed tiles, the stages, the stages' lse and dsum (dkdv), the
+  // barriers
+  static constexpr int kSmem = 1024 + (kRowsQ / 32) * kTile +
+                               kStages * 2 * kTile + kStages * 512 +
+                               8 * (1 + 2 * kStages);
 };
 
-// 1. dsum and lse, each into a (B, H, Sqp) f32 buffer, zeros past Sq;
+// 1. dsum and lse log2(e) (the kernels' p = 2^(s scale log2(e) - lse
+// log2(e)), `ex2`), each into a (B, H, Sqp) f32 buffer, zeros past Sq;
 // one warp a row
 __global__ void __launch_bounds__(kThreads)
 prep_tc_kernel(const __nv_bfloat16* __restrict__ o,
@@ -540,11 +565,59 @@ prep_tc_kernel(const __nv_bfloat16* __restrict__ o,
     acc += __shfl_xor_sync(0xffffffffu, acc, m);
   if (lane == 0) {
     dsum_p[warp] = acc;
-    lse_p[warp] = i < Sq ? lse[static_cast<size_t>(bh) * Sq + i] : 0.f;
+    lse_p[warp] =
+        i < Sq ? lse[static_cast<size_t>(bh) * Sq + i] * fa_tc::kLog2e : 0.f;
   }
 }
 
-// 2. dK, dV for 64 keys of one kv head
+// The head groups of the dkdv grid: the fewest (a divisor of G) that
+// give at least two blocks an SM, else one a query head
+inline int head_groups(int B, int Sk, int H, int K, bool two_pass) {
+  static int sms = 0;
+  if (sms <= 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess || sms <= 0)
+      sms = 132;
+  }
+  const long long blocks = static_cast<long long>(K) * B *
+                           ((Sk + kTcStep - 1) / kTcStep) * (two_pass ? 2 : 1);
+  const int G = H / K;
+  for (int ns = 1; ns < G; ++ns)
+    if (G % ns == 0 && blocks * ns >= 2LL * sms) return ns;
+  return G;
+}
+
+// acc += X.B over this tile: X (64 x 64 f32 in the accumulator layout:
+// P^T, dS^T or dS) in two bf16 terms as the register A operand, B the N
+// columns of a tile read MN-major from `b` on, into a fresh f32 partial
+// added to acc on the CUDA cores (the tensor cores' adds truncate: a
+// chain over every tile drifts past the rule, one tile's does not)
+template <int N>
+__device__ __forceinline__ void add_product(float (&acc)[N / 2],
+                                            const float (&x)[32],
+                                            const uint8_t* b) {
+  using namespace fa_tc;
+  uint32_t f[4][2][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) to_frag<2>(x, kk, f[kk]);
+  float part[N / 2];        // the first wgmma overwrites it
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      wgmma_rs_tile<N>(part, f[kk][u], b, kk, kk + u > 0);
+  }
+  wg_commit();
+  wg_wait_all();
+  fence_regs(part);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] += part[i];
+}
+
+// 2. dK, dV (or, in two passes, one of them) for 64 keys of one kv head
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 1)
 dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
@@ -554,26 +627,33 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                const float* __restrict__ lse_p,
                const float* __restrict__ dsum_p,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-               int Sq, int Sqp, int Sk, int H, int K, int hd, int causal,
-               int window, int q_offset, int kv_len, float scale) {
+               float* __restrict__ part, int ns, int Sq, int Sqp, int Sk,
+               int H, int K, int hd, int causal, int window, int q_offset,
+               int kv_len, float scale) {
   using namespace fa_tc;
   using L = BwdTc<HD>;
   constexpr int NC = L::kCols;
+  constexpr int kPasses = L::kTwoPass ? 2 : 1;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sk = align_1024(smem_raw);        // the block's 64 keys
   uint8_t* sv = sk + L::kTile;
   uint8_t* sst = sv + L::kTile;              // stage s: Q tile, dO tile
-  float* sstat = reinterpret_cast<float*>(sst + kTcStages * 2 * L::kTile);
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sstat + kTcStages * 128);
+  float* sstat = reinterpret_cast<float*>(sst + L::kStages * 2 * L::kTile);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sstat + L::kStages * 128);
   uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + kTcStages;
+  uint64_t* empty = full + L::kStages;
 
   // the grid's slowest dimension walks the key blocks from the first:
   // under a causal mask the blocks that see the most query rows start
-  // first
-  const int kh = blockIdx.x;
+  // first. The first dimension is (kv head, head group, pass); pass 0
+  // computes dV, pass 1 dK (two passes), and the block walks its group's
+  // G / ns query heads.
+  const int pass = L::kTwoPass ? blockIdx.x % kPasses : 0;
+  const int grp = (blockIdx.x / kPasses) % ns;
+  const int kh = blockIdx.x / (kPasses * ns);
   const int b = blockIdx.y;
   const int G = H / K;
+  const int Gb = G / ns;             // query heads a block
   const int k_first = blockIdx.z * kTcStep;
   const int kv_end = min(kv_len, Sk);
   // query rows that see one of this block's valid keys
@@ -584,11 +664,11 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
   const int t_begin = i_begin / kTcStep;
   const int t_end = i_end > i_begin ? (i_end + kTcStep - 1) / kTcStep : 0;
   const int n_tiles = max(t_end - t_begin, 0);
-  const int n_iter = G * n_tiles;    // (head, query tile) pairs, in order
+  const int n_iter = Gb * n_tiles;   // (head, query tile) pairs, in order
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < kTcStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], L::kAlternate ? 128 : 256);   // its consumers
     }
@@ -604,9 +684,9 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
       tma_load_tile<HD>(sk, &tk, kv_full, kh, k_first, b);
       tma_load_tile<HD>(sv, &tv, kv_full, kh, k_first, b);
       for (int n = 0; n < n_iter; ++n) {
-        const int stage = n % kTcStages;
-        mbar_wait(&empty[stage], ((n / kTcStages) & 1) ^ 1);
-        const int h = kh * G + n / n_tiles;
+        const int stage = n % L::kStages;
+        mbar_wait(&empty[stage], ((n / L::kStages) & 1) ^ 1);
+        const int h = kh * G + grp * Gb + n / n_tiles;
         const int t = t_begin + n % n_tiles;
         uint8_t* qs = sst + stage * 2 * L::kTile;
         float* st = sstat + stage * 128;
@@ -626,31 +706,33 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     const int cw = wg - 1;
     const int half = L::kAlternate ? 0 : cw;        // column block
     const int ka = k_first + frag_row(0, tid);   // keys ka, ka + 8
+    const float sc = scale * kLog2e;
     const int cols = half * (NC / 64) * kBoxBytes;  // this block's columns
-    float dk_acc[NC / 2], dv_acc[NC / 2];
+    // dV, then dK; in two passes the pass's one
+    float acc[L::kGrads][NC / 2];
 #pragma unroll
-    for (int i = 0; i < NC / 2; ++i) {
-      dk_acc[i] = 0.f;
-      dv_acc[i] = 0.f;
+    for (int g = 0; g < L::kGrads; ++g) {
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) acc[g][i] = 0.f;
     }
     mbar_wait(kv_full, 0);
     for (int n = L::kAlternate ? cw : 0; n < n_iter;
          n += L::kAlternate ? 2 : 1) {
-      const int stage = n % kTcStages;
+      const int stage = n % L::kStages;
       const int i0 = (t_begin + n % n_tiles) * kTcStep;
-      mbar_wait(&full[stage], (n / kTcStages) & 1);
+      mbar_wait(&full[stage], (n / L::kStages) & 1);
       const uint8_t* qs = sst + stage * 2 * L::kTile;
       const uint8_t* dos = qs + L::kTile;
       const float* st = sstat + stage * 128;
+      // S^T is overwritten by its first wgmma; dP^T (not computed in the
+      // dV pass) starts at zero
       float sT[32], dpT[32];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        sT[i] = 0.f;
-        dpT[i] = 0.f;
-      }
+      for (int i = 0; i < 32; ++i) dpT[i] = 0.f;
       wg_fence();
       gemm_ss<HD>(sT, sk, qs);      // S^T = K.Q^T: rows keys, cols queries
-      gemm_ss<HD>(dpT, sv, dos);    // dP^T = V.dO^T
+      if (!L::kTwoPass || pass == 1)   // (the dV pass needs no dP^T)
+        gemm_ss<HD>(dpT, sv, dos);  // dP^T = V.dO^T
       wg_commit();
       wg_wait_all();
       fence_regs(sT);
@@ -667,51 +749,22 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
           ok = i0 + c < Sq &&
                pair_ok(key, q_offset + i0 + c, Sk, kv_len, causal, window);
         }
-        const float p = ok ? expf(sT[i] * scale - st[c]) : 0.f;
+        const float p = ok ? ex2(fmaf(sT[i], sc, -st[c])) : 0.f;
         sT[i] = p;
         dpT[i] = p * (dpT[i] - st[64 + c]);
       }
-      // this tile's dV part P^T.dO, then its dK part dS^T.Q, each in two
-      // bf16 terms into a fresh accumulator (the tensor cores' adds
-      // truncate: a chain over every tile drifts past the rule), added to
-      // dV, dK in f32 on the CUDA cores
-      float part[NC / 2];
-      uint32_t f[4][2][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) to_frag<2>(sT, kk, f[kk]);
-#pragma unroll
-      for (int i = 0; i < NC / 2; ++i) part[i] = 0.f;
-      wg_fence();
-      fence_regs(part);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-          wgmma_rs<NC>(part, f[kk][u], desc_mn(dos + cols, kk), 1);
+      // this tile's dV part P^T.dO, then its dK part dS^T.Q (two passes:
+      // one of them, in branches of their own so that the dV pass keeps
+      // no dS^T live)
+      if (!L::kTwoPass) {
+        add_product<NC>(acc[0], sT, dos + cols);
+        add_product<NC>(acc[L::kGrads - 1], dpT, qs + cols);
+      } else if (pass == 0) {
+        add_product<NC>(acc[0], sT, dos + cols);
+      } else {
+        add_product<NC>(acc[0], dpT, qs + cols);
       }
-      wg_commit();
-      wg_wait_all();
-      fence_regs(part);
-#pragma unroll
-      for (int i = 0; i < NC / 2; ++i) dv_acc[i] += part[i];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) to_frag<2>(dpT, kk, f[kk]);
-#pragma unroll
-      for (int i = 0; i < NC / 2; ++i) part[i] = 0.f;
-      wg_fence();
-      fence_regs(part);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-          wgmma_rs<NC>(part, f[kk][u], desc_mn(qs + cols, kk), 1);
-      }
-      wg_commit();
-      wg_wait_all();
-      fence_regs(part);
       mbar_arrive(&empty[stage]);
-#pragma unroll
-      for (int i = 0; i < NC / 2; ++i) dk_acc[i] += part[i];
     }
 
     if (L::kAlternate) {
@@ -721,19 +774,26 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
       named_sync(1, 256);
       if (cw == 1) {
 #pragma unroll
-        for (int i = 0; i < NC / 2; ++i) {
-          red[i * 128 + tid] = dk_acc[i];
-          red[(NC / 2 + i) * 128 + tid] = dv_acc[i];
+        for (int g = 0; g < L::kGrads; ++g) {
+#pragma unroll
+          for (int i = 0; i < NC / 2; ++i)
+            red[(g * NC / 2 + i) * 128 + tid] = acc[g][i];
         }
       }
       named_sync(1, 256);
       if (cw == 1) return;
 #pragma unroll
-      for (int i = 0; i < NC / 2; ++i) {
-        dk_acc[i] += red[i * 128 + tid];
-        dv_acc[i] += red[(NC / 2 + i) * 128 + tid];
+      for (int g = 0; g < L::kGrads; ++g) {
+#pragma unroll
+        for (int i = 0; i < NC / 2; ++i)
+          acc[g][i] += red[(g * NC / 2 + i) * 128 + tid];
       }
     }
+    const bool store_dv = !L::kTwoPass || pass == 0;
+    const bool store_dk = !L::kTwoPass || pass == 1;
+    // head groups: this group's f32 sums (dK unscaled) to its plane of
+    // the scratch, (2, ns, B, Sk, K, hd): dV's planes, then dK's
+    const size_t plane = static_cast<size_t>(gridDim.y) * Sk * K * hd;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = ka + 8 * r;
@@ -744,17 +804,53 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
       for (int j = 0; j < NC / 8; ++j) {
         if (half * NC + 8 * j >= hd) continue;   // a padded column group
         const int col = 8 * j + 2 * (tid & 3);
-        *reinterpret_cast<uint32_t*>(dk + off + col) =
-            pack_bf16(dk_acc[4 * j + 2 * r] * scale,
-                      dk_acc[4 * j + 2 * r + 1] * scale);
-        *reinterpret_cast<uint32_t*>(dv + off + col) =
-            pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+        const int i = 4 * j + 2 * r;
+        if (ns > 1) {
+          if (store_dk)
+            *reinterpret_cast<float2*>(part + (ns + grp) * plane + off +
+                                       col) =
+                make_float2(acc[L::kGrads - 1][i], acc[L::kGrads - 1][i + 1]);
+          if (store_dv)
+            *reinterpret_cast<float2*>(part + grp * plane + off + col) =
+                make_float2(acc[0][i], acc[0][i + 1]);
+          continue;
+        }
+        if (store_dk)
+          *reinterpret_cast<uint32_t*>(dk + off + col) =
+              pack_bf16(acc[L::kGrads - 1][i] * scale,
+                        acc[L::kGrads - 1][i + 1] * scale);
+        if (store_dv)
+          *reinterpret_cast<uint32_t*>(dv + off + col) =
+              pack_bf16(acc[0][i], acc[0][i + 1]);
       }
     }
   }
 }
 
-// 3. dQ for 128 query rows of one head
+// 3. (head groups) dK and dV from the groups' f32 partial sums, added in
+// group order; 4 elements a thread
+__global__ void __launch_bounds__(kThreads)
+reduce_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+              __nv_bfloat16* __restrict__ dv, long long plane, int ns,
+              float scale) {
+  const long long i =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) * 4;
+  if (i >= plane) return;
+#pragma unroll
+  for (int grad = 0; grad < 2; ++grad) {     // dV, then dK
+    const float* p = part + grad * ns * plane + i;
+    float4 a = load4(p);
+    for (int g = 1; g < ns; ++g) {
+      const float4 x = load4(p + g * plane);
+      a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
+    }
+    if (grad == 1)
+      a = make_float4(a.x * scale, a.y * scale, a.z * scale, a.w * scale);
+    store4((grad == 1 ? dk : dv) + i, a);
+  }
+}
+
+// 4. dQ for 128 query rows of one head (64 at hd 256)
 template <int HD>
 __global__ void __launch_bounds__(kTcThreads, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
@@ -767,29 +863,31 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
              int window, int q_offset, int kv_len, float scale) {
   using namespace fa_tc;
   using L = BwdTc<HD>;
+  constexpr int NC = L::kColsQ;
+  constexpr int kBlocks = L::kRowsQ / 64;   // 64-row tiles of Q, of dO
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sq = align_1024(smem_raw);     // 2 tiles: rows 0-63, 64-127
-  uint8_t* sdo = sq + 2 * L::kTile;       // 2 tiles
-  uint8_t* sst = sdo + 2 * L::kTile;      // stage s: K tile, V tile
+  uint8_t* sq = align_1024(smem_raw);     // rows 0-63 (, 64-127)
+  uint8_t* sdo = sq + kBlocks * L::kTile;
+  uint8_t* sst = sdo + kBlocks * L::kTile;   // stage s: K tile, V tile
   uint64_t* q_full = reinterpret_cast<uint64_t*>(
-      sst + kTcStages * 2 * L::kTile + kTcStages * 512);
+      sst + L::kStages * 2 * L::kTile + L::kStages * 512);
   uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kTcStages;
+  uint64_t* empty = full + L::kStages;
 
   // the query blocks from the last: under a causal mask the blocks that
   // see the most keys start first
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int kh = h / (H / K);
-  const int q_first = (gridDim.z - 1 - blockIdx.z) * kTcRows;
+  const int q_first = (gridDim.z - 1 - blockIdx.z) * L::kRowsQ;
   const int kv_end = min(kv_len, Sk);
   int t_begin, t_end;
-  kv_tiles(q_first, kTcRows, Sq, q_offset, kv_end, causal, window, &t_begin,
-           &t_end);
+  kv_tiles(q_first, L::kRowsQ, Sq, q_offset, kv_end, causal, window,
+           &t_begin, &t_end);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kTcStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 256);
     }
@@ -801,8 +899,8 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   if (wg == 0) {
     regs_dec<24>();
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, 4 * L::kTile);
-      for (int r = 0; r < 2; ++r) {
+      mbar_expect_tx(q_full, 2 * kBlocks * L::kTile);
+      for (int r = 0; r < kBlocks; ++r) {
         tma_load_tile<HD>(sq + r * L::kTile, &tq, q_full, h,
                           q_first + 64 * r, b);
         tma_load_tile<HD>(sdo + r * L::kTile, &tdo, q_full, h,
@@ -817,7 +915,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
         tma_load_tile<HD>(ks, &tk, &full[stage], kh, t * kTcStep, b);
         tma_load_tile<HD>(ks + L::kTile, &tv, &full[stage], kh,
                           t * kTcStep, b);
-        if (++stage == kTcStages) {
+        if (++stage == L::kStages) {
           stage = 0;
           phase ^= 1;
         }
@@ -826,10 +924,13 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
   } else {
     regs_inc<240>();
     const int tid = threadIdx.x & 127;
-    const int row0 = q_first + 64 * (wg - 1);
+    const int blk = kBlocks == 2 ? wg - 1 : 0;    // row block
+    const int half = kBlocks == 2 ? 0 : wg - 1;   // column block
+    const int row0 = q_first + 64 * blk;
     const int ra = row0 + frag_row(0, tid);   // this thread's rows ra, ra + 8
-    const uint8_t* qt = sq + (wg - 1) * L::kTile;
-    const uint8_t* dot = sdo + (wg - 1) * L::kTile;
+    const uint8_t* qt = sq + blk * L::kTile;
+    const uint8_t* dot = sdo + blk * L::kTile;
+    const float sc = scale * kLog2e;
     float row_lse[2], row_dsum[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -837,9 +938,9 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       row_lse[r] = ra + 8 * r < Sq ? lse_p[stat] : 0.f;
       row_dsum[r] = ra + 8 * r < Sq ? dsum_p[stat] : 0.f;
     }
-    float dq_acc[HD / 2];
+    float dq_acc[NC / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dq_acc[i] = 0.f;
+    for (int i = 0; i < NC / 2; ++i) dq_acc[i] = 0.f;
     mbar_wait(q_full, 0);
     int stage = 0;
     uint32_t phase = 0;
@@ -848,12 +949,7 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_wait(&full[stage], phase);
       const uint8_t* ks = sst + stage * 2 * L::kTile;
       const uint8_t* vs = ks + L::kTile;
-      float s[32], dp[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        s[i] = 0.f;
-        dp[i] = 0.f;
-      }
+      float s[32], dp[32];    // each overwritten by its first wgmma
       wg_fence();
       gemm_ss<HD>(s, qt, ks);      // S = Q.K^T
       gemm_ss<HD>(dp, dot, vs);    // dP = dO.V^T
@@ -873,32 +969,13 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
           ok = row < Sq && pair_ok(k0 + frag_col(i, tid), q_offset + row, Sk,
                                    kv_len, causal, window);
         }
-        const float p = ok ? expf(s[i] * scale - row_lse[r]) : 0.f;
+        const float p = ok ? ex2(fmaf(s[i], sc, -row_lse[r])) : 0.f;
         dp[i] = p * (dp[i] - row_dsum[r]);
       }
-      // this tile's dS.K in two bf16 terms into a fresh accumulator,
-      // added to dQ in f32 (as in dkdv)
-      uint32_t df[4][2][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) to_frag<2>(dp, kk, df[kk]);
-      float part[HD / 2];
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) part[i] = 0.f;
-      wg_fence();
-      fence_regs(part);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-          wgmma_rs<HD>(part, df[kk][u], desc_mn(ks, kk), 1);
-      }
-      wg_commit();
-      wg_wait_all();
-      fence_regs(part);
+      // this tile's dS.K (this consumer's columns of K)
+      add_product<NC>(dq_acc, dp, ks + half * (NC / 64) * kBoxBytes);
       mbar_arrive(&empty[stage]);
-#pragma unroll
-      for (int i = 0; i < HD / 2; ++i) dq_acc[i] += part[i];
-      if (++stage == kTcStages) {
+      if (++stage == L::kStages) {
         stage = 0;
         phase ^= 1;
       }
@@ -909,10 +986,10 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = ra + 8 * r;
       if (row >= Sq) continue;
       __nv_bfloat16* drow =
-          dq + ((static_cast<size_t>(b) * Sq + row) * H + h) * hd;
+          dq + ((static_cast<size_t>(b) * Sq + row) * H + h) * hd + half * NC;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        if (8 * j < hd)                 // not a padded column group
+      for (int j = 0; j < NC / 8; ++j) {
+        if (half * NC + 8 * j < hd)     // not a padded column group
           *reinterpret_cast<uint32_t*>(drow + 8 * j + 2 * (tid & 3)) =
               pack_bf16(dq_acc[4 * j + 2 * r] * scale,
                         dq_acc[4 * j + 2 * r + 1] * scale);
@@ -960,14 +1037,30 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
       static_cast<const float*>(lse), dsum_p, lse_p, B, Sq, Sqp, H, hd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 kv_grid(K, B, (Sk + kTcStep - 1) / kTcStep);
+  // two passes (hd 256): a block for each of dV and dK, in one launch;
+  // head groups: a block for each group, their sums added by
+  // reduce_kernel
+  const int ns = head_groups(B, Sk, H, K, L::kTwoPass);
+  float* part = ns > 1 ? lse_p + static_cast<size_t>(B) * H * Sqp : nullptr;
+  const dim3 kv_grid(K * ns * (L::kTwoPass ? 2 : 1), B,
+                     (Sk + kTcStep - 1) / kTcStep);
   dkdv_tc_kernel<HD><<<kv_grid, kTcThreads, L::kSmem, s>>>(
       tq, tk, tv, tdo, lse_p, dsum_p, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Sq, Sqp, Sk, H, K, hd, causal, window,
-      q_offset, kv_len, scale);
+      static_cast<__nv_bfloat16*>(dv), part, ns, Sq, Sqp, Sk, H, K, hd,
+      causal, window, q_offset, kv_len, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 q_grid(H, B, (Sq + kTcRows - 1) / kTcRows);
+  if (ns > 1) {
+    const long long plane = static_cast<long long>(B) * Sk * K * hd;
+    const unsigned blocks = static_cast<unsigned>(
+        (plane / 4 + kThreads - 1) / kThreads);
+    reduce_kernel<<<blocks, kThreads, 0, s>>>(
+        part, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), plane, ns, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 q_grid(H, B, (Sq + L::kRowsQ - 1) / L::kRowsQ);
   dq_tc_kernel<HD><<<q_grid, kTcThreads, L::kSmem, s>>>(
       tq, tk, tv, tdo, lse_p, dsum_p, static_cast<__nv_bfloat16*>(dq), Sq,
       Sqp, Sk, H, K, hd, causal, window, q_offset, kv_len, scale);
@@ -1002,17 +1095,30 @@ extern "C" int fa_flash_attention_bwd(
 }
 
 // Head dims the tensor-core backward takes (bf16 only): those that run
-// in its 64 or 128 instantiation. The wrapper routes other bf16 head
-// dims (hd <= 32 and 136-256) and f32 to fa_flash_attention_bwd.
+// in its 64, 128 or 256 instantiation. The wrapper routes other bf16 head
+// dims (hd <= 32) and f32 to fa_flash_attention_bwd.
 extern "C" int fa_bwd_tc_supports_head_dim(int hd) {
-  return fa_tc::head_dim_ok(hd) && hd > 32 && hd <= 128;
+  return fa_tc::head_dim_ok(hd) && hd > 32;
+}
+
+// The f32 scratch the bf16 tensor-core backward takes at these shapes,
+// in floats: dsum and lse as (2, B, H, Sqp) with Sqp = 64 ceil(Sq / 64),
+// then, where the dkdv grid is split into ns > 1 head groups, the
+// groups' partial dK and dV as (2, ns, B, Sk, K, hd).
+extern "C" long long fa_bwd_tc_scratch_floats(int B, int Sq, int Sk, int H,
+                                              int K, int hd) {
+  const long long Sqp = (Sq + kTcStep - 1) / kTcStep * kTcStep;
+  long long n = 2LL * B * H * Sqp;
+  const int ns = head_groups(B, Sk, H, K, fa_tc::padded_head_dim(hd) == 256);
+  if (ns > 1) n += 2LL * ns * B * Sk * K * hd;
+  return n;
 }
 
 // The bf16 tensor-core backward: q, k, v, o, dout and the outputs dq,
 // dk, dv bf16 with 16-byte aligned bases; lse (B, H, Sq) f32; scratch
-// (2, B, H, Sqp) f32 with Sqp = 64 ceil(Sq / 64), 16-byte aligned. Three
-// launches on `stream`; returns the first non-zero error (tensor map,
-// shared-memory opt-in, cudaGetLastError()), else 0.
+// of fa_bwd_tc_scratch_floats() f32, 16-byte aligned. Three launches on
+// `stream` (four with head groups); returns the first non-zero error
+// (tensor map, shared-memory opt-in, cudaGetLastError()), else 0.
 extern "C" int fa_flash_attention_bwd_tc(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* scratch, void* dq, void* dk,
@@ -1021,10 +1127,18 @@ extern "C" int fa_flash_attention_bwd_tc(
   const auto s = static_cast<cudaStream_t>(stream);
   if (!fa_bwd_tc_supports_head_dim(hd))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (fa_tc::padded_head_dim(hd) == 64)
-    return launch_tc<64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq,
-                         Sk, H, K, hd, causal, window, q_offset, kv_len,
-                         scale, s);
-  return launch_tc<128>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq, Sk,
-                        H, K, hd, causal, window, q_offset, kv_len, scale, s);
+  switch (fa_tc::padded_head_dim(hd)) {
+    case 64:
+      return launch_tc<64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq,
+                           Sk, H, K, hd, causal, window, q_offset, kv_len,
+                           scale, s);
+    case 128:
+      return launch_tc<128>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
+                            Sq, Sk, H, K, hd, causal, window, q_offset,
+                            kv_len, scale, s);
+    default:
+      return launch_tc<256>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B,
+                            Sq, Sk, H, K, hd, causal, window, q_offset,
+                            kv_len, scale, s);
+  }
 }

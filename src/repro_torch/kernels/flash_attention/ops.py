@@ -14,14 +14,16 @@ in the next of them (`padded_head_dim`, the wrappers' check; the
 libraries' `fa_supports_head_dim` / `fa_bwd_supports_head_dim` give the
 same answer), its columns from hd on read as zeros inside the kernel
 (TMA fills them; the CUDA-core kernels skip the loads) and never
-stored, with the scale 1/sqrt(hd). No padded copy is made.
+stored, with the scale 1/sqrt(hd). No padded copy is made. The
+tensor-core forward is also built for 80 (`TC_FORWARD_HEAD_DIMS`,
+`tc_forward_head_dim`): hd 72 and 80 run there, not in the 128 build.
 
 On the card the route is chosen by dtype and head dim alone, before the
-launch: bf16 at a head dim that runs in a tensor-core instantiation (64,
-128, 256 forward; 64, 128 backward) launches them and counts as
-`flash_attention` / `flash_attention_bwd`; f32, and bf16 at another
-head dim (hd <= 32; backward also 136-256), launches the CUDA-core
-kernels and counts as `flash_attention_f32` / `flash_attention_bwd_f32`.
+launch: bf16 at hd 33-256 launches the tensor-core kernels (forward in
+its 64, 80, 128 or 256 build, backward in its 64, 128 or 256 one) and
+counts as `flash_attention` / `flash_attention_bwd`; f32, and bf16 at
+hd <= 32, launches the CUDA-core kernels and counts as
+`flash_attention_f32` / `flash_attention_bwd_f32`.
 
 `flash_attention` is differentiable: when a gradient is wanted it runs
 as an autograd Function whose forward also keeps each row's
@@ -45,6 +47,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)        # the kernels' instantiations
+TC_FORWARD_HEAD_DIMS = (64, 80, 128, 256)   # the tensor-core forward's
 
 
 def padded_head_dim(hd: int) -> int:
@@ -55,6 +58,17 @@ def padded_head_dim(hd: int) -> int:
         raise ValueError(f"flash_attention: no kernel for head_dim {hd} "
                          f"(hd % 8 == 0 and hd <= 256)")
     return next(d for d in HEAD_DIMS if d >= hd)
+
+
+def tc_forward_head_dim(hd: int) -> int:
+    """The build of the bf16 tensor-core forward that head dim `hd` (33 to
+    256) runs in: the next of TC_FORWARD_HEAD_DIMS (as
+    csrc/flash_wgmma.cuh `fwd_tc_head_dim`)."""
+    padded_head_dim(hd)
+    if hd <= 32:
+        raise ValueError(f"flash_attention: head_dim {hd} runs on the CUDA "
+                         f"cores, not the tensor cores")
+    return next(d for d in TC_FORWARD_HEAD_DIMS if d >= hd)
 
 
 def _lib() -> ctypes.CDLL:
@@ -70,6 +84,8 @@ def _lib() -> ctypes.CDLL:
         lib.fa_flash_attention_tc.restype = _I
         lib.fa_tc_supports_head_dim.argtypes = [_I]
         lib.fa_tc_supports_head_dim.restype = _I
+        lib.fa_tc_build_head_dim.argtypes = [_I]
+        lib.fa_tc_build_head_dim.restype = _I
     return lib
 
 
@@ -86,6 +102,8 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.fa_flash_attention_bwd_tc.restype = _I
         lib.fa_bwd_tc_supports_head_dim.argtypes = [_I]
         lib.fa_bwd_tc_supports_head_dim.restype = _I
+        lib.fa_bwd_tc_scratch_floats.argtypes = [_I] * 6
+        lib.fa_bwd_tc_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -194,10 +212,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * Sq * H == 0 or Sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     # scratch: dsum (B, H, Sq); the tensor-core kernels take dsum and a
-    # copy of lse, each zero-padded to a multiple of 64 rows
-    rows = -(-Sq // 64) * 64 if tc else Sq
-    scratch = torch.empty(((2 if tc else 1), B, H, rows),
-                          dtype=torch.float32, device=dev)
+    # copy of lse, each zero-padded to a multiple of 64 rows, and the
+    # partial dK, dV of head groups where they split the grid (the
+    # library sizes it)
+    n = (int(lib.fa_bwd_tc_scratch_floats(B, Sq, Sk, H, K, hd)) if tc
+         else B * H * Sq)
+    scratch = torch.empty(n, dtype=torch.float32, device=dev)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Sq, Sk, H, K, hd)

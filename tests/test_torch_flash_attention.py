@@ -123,6 +123,18 @@ def test_padded_head_dim(hd, built):
     assert ops.padded_head_dim(hd) == built
 
 
+@pytest.mark.parametrize("hd,built", [(40, 64), (64, 64), (72, 80),
+                                      (80, 80), (88, 128), (128, 128),
+                                      (136, 256), (256, 256)])
+def test_tc_forward_head_dim(hd, built):
+    """The bf16 tensor-core forward is also built for 80: hd 72 and 80 run
+    there, the rest in the next of 64, 128, 256 (as csrc/flash_wgmma.cuh
+    `fwd_tc_head_dim`); hd <= 32 has no tensor-core build."""
+    assert ops.tc_forward_head_dim(hd) == built
+    with pytest.raises(ValueError, match="CUDA cores"):
+        ops.tc_forward_head_dim(32)
+
+
 @pytest.mark.parametrize("hd", [0, 4, 84, 260, 512])
 def test_head_dim_without_kernel_raises(hd):
     with pytest.raises(ValueError, match=f"head_dim {hd}"):
@@ -225,13 +237,16 @@ def _emulate_tc_forward(q, k, v, *, causal, window, q_offset, terms,
 
 
 # (B, Sq, Sk, H, K, hd, causal, window): hd 64 and 256, causal and
-# windowed (RecurrentGemma's hd with a window), suffix-aligned GQA
+# windowed (RecurrentGemma's hd with a window), suffix-aligned GQA; hd 80
+# (StableLM-3B's, the 80 build), causal
 TC_CASES = [
     (1, 1024, 1024, 2, 1, 64, True, 0),
     (1, 1024, 1024, 2, 1, 256, True, 512),
     (1, 512, 1024, 4, 2, 256, True, 0),
     (1, 768, 768, 3, 3, 64, True, 100),
+    (1, 1024, 1024, 2, 2, 80, True, 0),
 ]
+HD80_CASE = TC_CASES[-1]
 
 
 def _bf16_qkv(seed, B, Sq, Sk, H, K, hd):
@@ -264,3 +279,17 @@ def test_one_bf16_term_of_p_fails_the_rule():
     got = _emulate_tc_forward(q, k, v, causal=causal, window=window,
                               q_offset=0, terms=1)
     assert _misses(got, want, -16) > 1000
+
+
+def test_two_bf16_terms_of_p_fail_the_rule_at_hd80():
+    """At hd 80 P in two bf16 terms still misses the rule (1 element of
+    163,840 on this case), three do not
+    (test_tensor_core_forward_arithmetic_within_rule): why the hd-80 build
+    keeps three terms."""
+    B, Sq, Sk, H, K, hd, causal, window = HD80_CASE
+    q, k, v = _bf16_qkv(sum(HD80_CASE[:6]), B, Sq, Sk, H, K, hd)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window,
+                             q_offset=0)
+    got = _emulate_tc_forward(q, k, v, causal=causal, window=window,
+                              q_offset=0, terms=2)
+    assert _misses(got, want, -16) > 0

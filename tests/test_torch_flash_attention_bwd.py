@@ -20,6 +20,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro.models.layers import chunked_attention
+from repro_torch.kernels import runtime
 from repro_torch.kernels.flash_attention import ops, ref
 
 GRAD_RTOL = 1e-5
@@ -135,6 +136,49 @@ def test_unsupported_backward_head_dim_raises(monkeypatch):
             ops.flash_attention_bwd(*args(hd))
 
 
+def test_bf16_backward_routes_to_the_tensor_cores(monkeypatch):
+    """On the card the bf16 backward at hd 33-256 (hd 256 and 200 in the
+    256 build among them) launches the tensor-core kernels and counts as
+    `flash_attention_bwd`; f32 and bf16 at hd <= 32 launch the CUDA-core
+    ones (`flash_attention_bwd_f32`). Meta tensors and a stub library,
+    which answers as csrc/flash_attention_bwd.cu's entry points do, stand
+    in for the card."""
+    calls = []
+
+    def entry(name):
+        return staticmethod(lambda *a: calls.append((name, a[15])) or 0)
+
+    stub = type("Lib", (), {
+        "fa_bwd_supports_head_dim":
+            staticmethod(lambda hd: int(0 < hd <= 256 and hd % 8 == 0)),
+        "fa_bwd_tc_supports_head_dim":
+            staticmethod(lambda hd: int(32 < hd <= 256 and hd % 8 == 0)),
+        "fa_bwd_tc_scratch_floats": staticmethod(lambda *a: 1024),
+        "fa_flash_attention_bwd_tc": entry("tc"),
+        "fa_flash_attention_bwd": entry("cuda cores")})
+    monkeypatch.setattr(ops, "_bwd_lib", lambda: stub)
+    monkeypatch.setattr(ops, "_require_cuda", lambda q, what: None)
+    monkeypatch.setattr(runtime, "stream_ptr", lambda t: 0)
+    for hd, dtype, want in ((256, torch.bfloat16, "tc"),
+                            (200, torch.bfloat16, "tc"),
+                            (80, torch.bfloat16, "tc"),
+                            (32, torch.bfloat16, "cuda cores"),
+                            (256, torch.float32, "cuda cores")):
+        q, out, do = (torch.empty((1, 4, 2, hd), device="meta", dtype=dtype)
+                      for _ in range(3))
+        k, v = (torch.empty((1, 4, 1, hd), device="meta", dtype=dtype)
+                for _ in range(2))
+        lse = torch.empty((1, 2, 4), device="meta")
+        calls.clear()
+        runtime.reset_counts()
+        grads = ops.flash_attention_bwd(q, k, v, out, do, lse)
+        assert calls == [(want, hd)]
+        assert runtime.counts() == {"flash_attention_bwd" if want == "tc"
+                                    else "flash_attention_bwd_f32": 1}
+        assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    runtime.reset_counts()
+
+
 # -- the tensor-core kernels' arithmetic, emulated in plain PyTorch ------
 #
 # csrc/flash_attention_bwd.cu's bf16 kernels compute S and dP from bf16
@@ -176,11 +220,15 @@ def _split_product(a, b, terms, tile=64):
     return acc
 
 
-def _emulate_tc_backward(q, k, v, out, do, lse, *, causal, window,
-                         q_offset, terms):
-    B, Sq, H, hd = q.shape
-    Sk, K = k.shape[1], k.shape[2]
+def _tc_operands(q, k, v, out, do, lse, *, causal, window, q_offset):
+    """The kernels' f32 operands, zero-padded to the built head dim
+    (`ops.padded_head_dim`), with P and dS from S and dP at the true
+    scale 1/sqrt(hd): (scale, qf, kf, dof, p, ds)."""
+    Sq, hd = q.shape[1], q.shape[3]
+    Sk = k.shape[1]
     scale = 1.0 / np.sqrt(hd)
+    hdp = ops.padded_head_dim(hd)
+    q, k, v, out, do = (_pad(x, hdp) for x in (q, k, v, out, do))
     qf, kf, vf = ref._heads_f32(q, k, v)
     dof = do.float().transpose(1, 2)
     dsum = (dof * out.float().transpose(1, 2)).sum(-1, keepdim=True)
@@ -189,22 +237,63 @@ def _emulate_tc_backward(q, k, v, out, do, lse, *, causal, window,
     s = (qf @ kf.transpose(-1, -2)) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]), torch.tensor(0.0))
     ds = p * (dof @ vf.transpose(-1, -2) - dsum)
+    return scale, qf, kf, dof, p, ds
+
+
+def _grads_out(q, k, dq, dk, dv):
+    """(B, H, S, hdp) f32 sums -> dq (B, Sq, H, hd) and dk, dv summed over
+    the query heads of each kv head, in q's dtype, padding dropped."""
+    B, _, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+
+    def per_kv_head(x):
+        return x.reshape(B, K, H // K, Sk, -1).sum(2).transpose(1, 2)
+
+    return tuple(x[..., :hd].contiguous().to(q.dtype) for x in (
+        dq.transpose(1, 2), per_kv_head(dk), per_kv_head(dv)))
+
+
+def _emulate_tc_backward(q, k, v, out, do, lse, *, causal, window,
+                         q_offset, terms):
+    scale, qf, kf, dof, p, ds = _tc_operands(
+        q, k, v, out, do, lse, causal=causal, window=window,
+        q_offset=q_offset)
     dv = _split_product(p.transpose(-1, -2), dof, terms)
     dk = _split_product(ds.transpose(-1, -2), qf, terms) * scale
     dq = _split_product(ds, kf, terms) * scale
+    return _grads_out(q, k, dq, dk, dv)
 
-    def per_kv_head(x):
-        return x.reshape(B, K, H // K, Sk, hd).sum(2).transpose(1, 2)
 
-    return (dq.transpose(1, 2).to(q.dtype), per_kv_head(dk).to(q.dtype),
-            per_kv_head(dv).to(q.dtype))
+def _emulate_two_pass_backward(q, k, v, out, do, lse, *, causal, window,
+                               q_offset):
+    """The hd-256 build's order: a dV pass (S^T, P^T, dV += P^T.dO) and a
+    dK pass (S^T and dP^T, dS^T, dK += dS^T.Q) over separate blocks, and
+    dQ over 64-row blocks; in each, the two consumers take 128 columns of
+    the product each. Two bf16 terms, a fresh f32 partial a tile."""
+    scale, qf, kf, dof, p, ds = _tc_operands(
+        q, k, v, out, do, lse, causal=causal, window=window,
+        q_offset=q_offset)
+    half = qf.shape[-1] // 2
+
+    def by_halves(a, b):
+        return torch.cat([_split_product(a, b[..., c:c + half], 2)
+                          for c in (0, half)], -1)
+
+    dv = by_halves(p.transpose(-1, -2), dof)             # pass 0
+    dk = by_halves(ds.transpose(-1, -2), qf) * scale     # pass 1
+    dq = by_halves(ds, kf) * scale
+    return _grads_out(q, k, dq, dk, dv)
 
 
 # (B, Sq, Sk, H, K, hd, causal, window): hd 64 (SmolLM's) and 128, causal
-# and windowed, GQA
+# and windowed, GQA; hd 256 (RecurrentGemma's) windowed over 2 and 4
+# query heads a kv head, and hd 200 in the 256 build
 TC_CASES = [
     (1, 1024, 1024, 3, 1, 64, True, 0),
     (1, 768, 768, 4, 2, 128, True, 200),
+    (1, 1024, 1024, 2, 1, 256, True, 512),
+    (1, 1024, 1024, 4, 1, 256, True, 1024),
+    (1, 512, 512, 2, 1, 200, True, 128),
 ]
 
 
@@ -229,6 +318,22 @@ def test_tensor_core_backward_arithmetic_within_rule(case):
     got = _emulate_tc_backward(q, k, v, out, do, lse, terms=2, **kw)
     for a, b in zip(got, want):
         assert a.shape == b.shape and _misses(a, b) == 0
+
+
+@pytest.mark.parametrize("case", [c for c in TC_CASES
+                                  if ops.padded_head_dim(c[5]) == 256],
+                         ids=str)
+def test_two_pass_backward_arithmetic_within_rule(case):
+    """The hd-256 build's two passes (dV and dK in separate blocks, each
+    consumer on 128 columns): every gradient within 2 bf16 ulps of the
+    plain backward and of the one-pass emulation."""
+    q, k, v, out, do, lse, kw = _bf16_case(case)
+    want = ref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    got = _emulate_two_pass_backward(q, k, v, out, do, lse, **kw)
+    one = _emulate_tc_backward(q, k, v, out, do, lse, terms=2, **kw)
+    for a, b, c in zip(got, want, one):
+        assert a.shape == b.shape and _misses(a, b) == 0
+        assert _misses(a, c) == 0
 
 
 def test_one_bf16_term_of_p_and_ds_fails_the_rule():

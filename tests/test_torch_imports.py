@@ -1,5 +1,5 @@
-"""The port stands alone: no module of repro_torch, and not chip_smoke.py,
-imports jax or the JAX package; its entry points never fall back to the
+"""The port stands alone: no module of repro_torch, and not chip_smoke.py
+or flash_probe.py, imports jax or the JAX package; its entry points never fall back to the
 CPU on their own."""
 import ast
 from pathlib import Path
@@ -9,7 +9,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "flash_probe.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
