@@ -87,10 +87,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      pso_update once per leaf, 11 times, and the CUDA-core flash kernels
      (the _f32 counters) never; then profiles one more round; then the
      training forward and the backward at StableLM-3B's hd 80 (B 2, S
-     2048, 32 heads, MHA, causal) and at RecurrentGemma-9B's hd 256 (B 2,
-     S 2048, 16 heads over 1, window 2048; bf16 in the tensor cores' 256
-     build, no path runs it yet), bf16 and f32, and a ragged hd-256 GQA
-     case, as the other backward cases, the bf16 backward timed beside
+     2048, 32 heads, MHA, causal; bf16 in the tensor cores' 80 build) and
+     at RecurrentGemma-9B's hd 256 (B 2, S 2048, 16 heads over 1, window
+     2048; bf16 in the tensor cores' 256 build, no path runs it yet),
+     bf16 and f32, and ragged hd-80, hd-72 and hd-256 GQA cases (the
+     hd-80 build's tail box past S and past hd), as the other backward
+     cases, each asserting its build, the bf16 backward timed beside
      SDPA's backward alone (and at hd 256 beside the CUDA-core kernels
      it replaces); and one M-DSL round of
      StableLM-3B at full width with the depth cut to 2 layers (W 2, B 1,
@@ -1054,6 +1056,11 @@ def flash_bwd_case(dev, case, g):
     route = flash_route(dtype, hd, bwd=True)
     check(runtime.counts() == {route: 1}, f"flash backward {label}: "
           f"launched {runtime.counts()}, expected {{{route!r}: 1}}")
+    if route == "flash_attention_bwd":      # the tensor cores: which build
+        build = fops._bwd_lib().fa_bwd_tc_build_head_dim(hd)
+        check(build == fops.tc_head_dim(hd), f"flash backward {label}: "
+              f"hd {hd} ran in build {build}, expected {fops.tc_head_dim(hd)}")
+        route = f"{route}, build {build}"
     plain = fref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
     xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
     auto = torch.autograd.grad(fref.attention_ref(*xs, **kw), xs, do)
@@ -1122,15 +1129,18 @@ def flash_bwd_checks(dev):
               bool(fops._bwd_lib().fa_bwd_supports_head_dim(hd)) == want,
               f"flash libraries: head_dim {hd} "
               f"{'refused' if want else 'accepted'}")
-        # the tensor-core forward's build: the library's and the wrappers'
-        build = fops.tc_forward_head_dim(hd) if want and hd > 32 else 0
-        check(fops._lib().fa_tc_build_head_dim(hd) == build,
-              f"flash forward library: head_dim {hd} runs in build "
-              f"{fops._lib().fa_tc_build_head_dim(hd)}, expected {build}")
+        # the tensor-core builds, forward and backward: the libraries'
+        # and the wrappers' one rule
+        build = fops.tc_head_dim(hd) if want and hd > 32 else 0
+        for what, got in (
+                ("forward", fops._lib().fa_tc_build_head_dim(hd)),
+                ("backward", fops._bwd_lib().fa_bwd_tc_build_head_dim(hd))):
+            check(got == build, f"flash {what} library: head_dim {hd} runs "
+                                f"in build {got}, expected {build}")
     print("[check] flash libraries, forward and backward, and the wrappers' "
           "rule: head dims 8, 16, ..., 256 accepted, every other in 0-264 "
-          "refused; the tensor-core forward's builds as "
-          "`tc_forward_head_dim` (hd 72 and 80 in the 80 build)", flush=True)
+          "refused; the tensor-core builds, forward and backward, as "
+          "`tc_head_dim` (hd 72 and 80 in the 80 build)", flush=True)
     err = max(r[0] for r in results)
     q, k, v, out, do, lse, kw = results[0][1]
     B, S, H, hd = q.shape
@@ -1421,7 +1431,7 @@ HD_SERVE_BATCH, HD_SERVE_PROMPT, HD_SERVE_GEN = 4, 4096, 32
 HD_MESH_LAYERS, HD_MESH_B, HD_MESH_S = 2, 1, 2048
 # StableLM-3B's attention: the serve prefill's forward (bf16 in the
 # tensor-core forward's 80 build) and the training shape's forward +
-# backward (the backward in the 128 build), bf16 and f32; RecurrentGemma-
+# backward (the backward in its 80 build too), bf16 and f32; RecurrentGemma-
 # 9B's hd-256 backward (16 heads over 1, window 2048; the tensor cores'
 # 256 build, two passes and head groups), which no model path runs yet
 # (its training waits for the scan's backward). The ragged cases (Sq not
@@ -1444,6 +1454,10 @@ HD_BWD_CASES = [
      None),
     ("hd256 ragged", 2, 300, 1000, 4, 2, 256, "bfloat16", True, 128, 700,
      800),
+    ("hd80 ragged", 2, 300, 1000, 6, 2, 80, "bfloat16", True, 128, 700,
+     800),
+    ("hd72 ragged", 1, 333, 333, 4, 2, 72, "bfloat16", True, 100, None,
+     None),
 ]
 
 
@@ -1591,12 +1605,16 @@ def hd_backward_checks(dev):
     its route; the bf16 backward times beside SDPA's backward alone.
     Returns {"hd80": row, "hd256": row}."""
     import torch
+    from repro_torch.kernels.flash_attention import ops as fops
     g = torch.Generator(device=dev).manual_seed(7)
     rows = {}
     for case in HD_BWD_CASES:
         err, inputs, _ = flash_bwd_case(dev, case, g)
         if "ragged" in case[0]:
-            rows[case[0].split()[0]]["ragged_max_abs_err"] = err
+            # on the row of the build it runs in (hd 72: the 80 build)
+            row = rows[f"hd{fops.tc_head_dim(case[6])}"]
+            row["ragged_max_abs_err"] = max(row.get("ragged_max_abs_err",
+                                                    0.0), err)
         elif case[7] == "bfloat16":
             rows[case[0]] = dict(time_flash_bwd(case[0], *inputs),
                                  max_abs_err=err)
@@ -2190,7 +2208,7 @@ def main() -> None:
     bwd = next(k for k in kernels if k["name"] == "flash_attention_bwd")
     kernels.append(dict(
         bwd, name="flash_attention_bwd (hd 80, StableLM-3B training shape)",
-        shape="bf16 (2, 2048, 32, 80), MHA, causal; runs in the 128 build",
+        shape="bf16 (2, 2048, 32, 80), MHA, causal; the 80 build",
         launches=hd80_mesh_counts["flash_attention_bwd"], cuda_core_ms=None,
         f32_ms=None, library_fwd_bwd_ms=None, **hd_bwd_rows["hd80"]))
     kernels.append(dict(

@@ -12,7 +12,7 @@
 // Head dims: any hd % 8 == 0 up to 256, each in the next built one of 32
 // (CUDA cores only), 64, 80 (tensor cores only), 128 and 256, its columns
 // from hd on zeros that are never stored (flash_wgmma.cuh,
-// `padded_head_dim`, `fwd_tc_head_dim`); StableLM-3B's hd 80 runs in the
+// `padded_head_dim`, `tc_head_dim`); StableLM-3B's hd 80 runs in the
 // tensor-core kernel's 80 instantiation, which issues the products of
 // 80 columns, not 128: Q.K^T as five k-slices, P.V as an n64 wgmma over
 // the first 64-column box and an n16 one over a 16-column tail box in
@@ -603,7 +603,7 @@ extern "C" int fa_tc_supports_head_dim(int hd) {
 // The build of the tensor-core kernel that head dim hd runs in (64, 80,
 // 128 or 256), 0 where it has none.
 extern "C" int fa_tc_build_head_dim(int hd) {
-  return fa_tc_supports_head_dim(hd) ? fa_tc::fwd_tc_head_dim(hd) : 0;
+  return fa_tc_supports_head_dim(hd) ? fa_tc::tc_head_dim(hd) : 0;
 }
 
 // The bf16 tensor-core forward: q, k, v, out bf16 with 16-byte aligned
@@ -619,7 +619,7 @@ extern "C" int fa_flash_attention_tc(const void* q, const void* k,
   const auto s = static_cast<cudaStream_t>(stream);
   if (!fa_tc_supports_head_dim(hd))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (fa_tc::fwd_tc_head_dim(hd)) {
+  switch (fa_tc::tc_head_dim(hd)) {
     case 64:
       return launch_tc<64>(q, k, v, out, lse, B, Sq, Sk, H, K, hd, causal,
                            window, q_offset, kv_len, scale, s);

@@ -35,13 +35,19 @@
 // What bounds it: operations. Counted as 10 hd a unmasked (query, key)
 // pair (S, dP, dV, dK, dQ) at the bf16 tensor-core peak, 989 TFLOP/s:
 // at SmolLM-360M's training shape (B 2, H 15 over 5, hd 64, S 2048,
-// causal; 6.29e7 pairs) 0.041 ms; at RecurrentGemma-9B's attention (B 2,
-// H 16 over 1, hd 256, S 2048, window 2048; 6.71e7 pairs) 0.174 ms.
+// causal; 6.29e7 pairs) 0.041 ms; at StableLM-3B's training shape (B 2,
+// H 32, hd 80, S 2048, causal; 1.34e8 pairs) 0.109 ms; at
+// RecurrentGemma-9B's attention (B 2, H 16 over 1, hd 256, S 2048,
+// window 2048; 6.71e7 pairs) 0.174 ms.
 //
 // Head dims: any hd % 8 == 0 up to 256, each in the next built one of
-// 32, 64, 128 and 256 (both routes), its columns from hd on zeros that
-// are never stored (flash_wgmma.cuh, `padded_head_dim`): StableLM-3B's
-// hd 80 runs in the tensor-core kernels' 128 instantiation.
+// 32 (CUDA cores only), 64, 80 (tensor cores only), 128 and 256, its
+// columns from hd on zeros that are never stored (flash_wgmma.cuh,
+// `padded_head_dim`, `tc_head_dim`, the forward's rule): StableLM-3B's
+// hd 80 runs in the tensor-core kernels' 80 instantiation, whose tiles
+// are a 64-column box and a 16-column tail box in the 32-byte swizzle
+// (`Tile`): S^T and dP^T are five k-slices each, and dV, dK and dQ
+// n80 products (an n64 wgmma over the box, an n16 one over the tail).
 //
 // The bf16 kernels (dkdv_tc_kernel, dq_tc_kernel; hd 40-256) run
 // all products on the tensor cores (wgmma, flash_wgmma.cuh) and issue
@@ -64,21 +70,21 @@
 // What that design does:
 // - Blocks of three warpgroups: a producer warpgroup (setmaxnreg 24),
 //   one of whose threads loads the block's fixed tiles once and then a
-//   ring of 3 stages (2 at hd 256) by TMA (4D maps over (hd, heads, S,
-//   B): ragged tiles read zeros past S, never the next batch) and 1D bulk
-//   copies (lse, dsum), behind "full" and "empty" mbarriers; two
-//   consumer warpgroups (setmaxnreg 240).
+//   ring of 3 stages (2 at hd 256, 4 at hd 80) by TMA (4D maps over
+//   (hd, heads, S, B): ragged tiles read zeros past S, never the next
+//   batch) and 1D bulk copies (lse, dsum), behind "full" and "empty"
+//   mbarriers; two consumer warpgroups (setmaxnreg 240).
 // - dkdv_tc_kernel, one block per (64 keys, kv head, batch), the blocks
 //   that see the most query rows launched first: K and V stay in shared
 //   memory; each stage holds 64 query rows of Q and dO and their lse and
 //   dsum. S^T = K.Q^T and dP^T = V.dO^T by wgmma from shared memory put
 //   P^T and dS^T in the accumulator layout with rows = keys, so they are
 //   the register A operand of dV += P^T.dO and dK += dS^T.Q (dO and Q
-//   read MN-major). At hd 64 the two consumers take alternate stages,
-//   each with all of dK and dV in registers, and the second's sums are
-//   added to the first's through shared memory at the end (a fixed
-//   order): the heaviest block's chain of (head, query tile) steps is
-//   split in two. At hd 128 both take every stage with half the columns
+//   read MN-major). At hd 64 and 80 the two consumers take alternate
+//   stages, each with all of dK and dV in registers, and the second's
+//   sums are added to the first's through shared memory at the end (a
+//   fixed order): the heaviest block's chain of (head, query tile) steps
+//   is split in two. At hd 128 both take every stage with half the columns
 //   of dK and dV each (both compute S^T and dP^T), so that dK, dV and a
 //   partial fit in registers. At hd 256 a block computes dV or dK (two
 //   passes in one launch, twice the blocks), both consumers every stage
@@ -493,26 +499,32 @@ int dispatch(int hd, const void* q, const void* k, const void* v,
   }
 }
 
-// -- the tensor-core kernels: bf16 at hd 64, 128 and 256 -----------------
+// -- the tensor-core kernels: bf16 at hd 64, 80, 128 and 256 -------------
 
 constexpr int kTcThreads = 384;   // producer + two consumer warpgroups
 constexpr int kTcStep = 64;       // query rows (dkdv) or keys (dq) a stage
 
-// dkdv: a block has 64 keys. At hd 64 its two consumer warpgroups take
-// alternate query tiles, each with all columns of dK and dV, and add
-// their sums at the end; at hd 128 both take every tile, each with half
-// the columns (both compute S^T and dP^T), so that dK, dV and a partial
-// fit in registers. At hd 256 half the columns of both would not (2 x 64
-// + a 64-register partial + S^T and dP^T: ~256 of a consumer's 240), so
-// a block computes one of them (`kTwoPass`; the grid's first dimension
-// names the pass): dV (S^T, P^T, dV += P^T.dO) or dK (S^T and dP^T,
-// dS^T, dK += dS^T.Q), each consumer 128 of its columns: 64 registers
-// of the gradient, 64 of the partial, 64 of S^T and dP^T. That adds one
-// S^T a pair. dq: 128 query rows a block, 64 and all columns a consumer;
-// at hd 256 64 rows, half the columns a consumer (both compute S, dP).
-// Shared memory: 2 fixed tiles (K, V; dq's Q and dO: 4 at 128 rows) and
-// stages of 2 tiles, 3 stages (2 at hd 256, where a tile is 32 KiB:
-// 192 KiB in all).
+// dkdv: a block has 64 keys. At hd 64 and 80 its two consumer warpgroups
+// take alternate query tiles, each with all columns of dK and dV, and add
+// their sums at the end. At hd 80 that is 2 x 40 registers of dK and dV,
+// 40 of the partial, 32 of dP^T and 32 of P^T's fragments while dV's
+// product runs; 80 columns do not split into box-aligned halves, and
+// halves would repeat S^T, dP^T and the softmax in both consumers. At hd
+// 128 both take every tile, each with half the columns (both compute S^T
+// and dP^T), so that dK, dV and a partial fit in registers. At hd 256
+// half the columns of both would not (2 x 64 + a 64-register partial +
+// S^T and dP^T: ~256 of a consumer's 240), so a block computes one of
+// them (`kTwoPass`; the grid's first dimension names the pass): dV (S^T,
+// P^T, dV += P^T.dO) or dK (S^T and dP^T, dS^T, dK += dS^T.Q), each
+// consumer 128 of its columns: 64 registers of the gradient, 64 of the
+// partial, 64 of S^T and dP^T. That adds one S^T a pair. dq: 128 query
+// rows a block, 64 and all columns a consumer; at hd 256 64 rows, half
+// the columns a consumer (both compute S, dP). Shared memory: 2 fixed
+// tiles (K, V; dq's Q and dO: 4 at 128 rows) and stages of 2 tiles, 3
+// stages (2 at hd 256, where a tile is 32 KiB: 192 KiB in all; 4 at hd
+// 80, where a tile is 10 KiB). The alternate layout's exchange of the
+// second consumer's sums, 2 x (NC / 2) x 128 floats (40 KiB at hd 80),
+// goes through the consumed stages (80 KiB at hd 80).
 //
 // Head groups (`head_groups`): a dkdv block walks the G = H / K query
 // heads of its kv head, so a grid of few kv heads and keys has too few
@@ -525,19 +537,24 @@ constexpr int kTcStep = 64;       // query rows (dkdv) or keys (dq) a stage
 // from run to run).
 template <int HD>
 struct BwdTc {
-  static constexpr int kTile = fa_tc::kTileRows * HD * 2;   // 64 rows
-  static constexpr bool kAlternate = HD == 64;              // dkdv
+  static constexpr int kTile = fa_tc::Tile<HD>::kBytes;     // 64 rows
+  static constexpr bool kAlternate = HD == 64 || HD == 80;  // dkdv
   static constexpr bool kTwoPass = HD == 256;               // dkdv
   static constexpr int kCols = kAlternate ? HD : HD / 2;    // dkdv
   static constexpr int kGrads = kTwoPass ? 1 : 2;           // dkdv: dV, dK
   static constexpr int kRowsQ = HD == 256 ? 64 : 128;       // dq
   static constexpr int kColsQ = kRowsQ == 128 ? HD : HD / 2;   // dq
-  static constexpr int kStages = HD == 256 ? 2 : 3;
+  // 4 stages at hd 80 (126,024 B): dkdv 460 us against 3 stages' 475
+  // at StableLM-3B's training shape on an H100 (flash_probe.py)
+  static constexpr int kStages = HD == 256 ? 2 : HD == 80 ? 4 : 3;
   // the fixed tiles, the stages, the stages' lse and dsum (dkdv), the
   // barriers
   static constexpr int kSmem = 1024 + (kRowsQ / 32) * kTile +
                                kStages * 2 * kTile + kStages * 512 +
                                8 * (1 + 2 * kStages);
+  static_assert(!kAlternate || 2 * (kCols / 2) * 128 * 4 <=
+                                   kStages * 2 * kTile,
+                "the consumers' exchange fits the stages");
 };
 
 // 1. dsum and lse log2(e) (the kernels' p = 2^(s scale log2(e) - lse
@@ -624,6 +641,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv,
                const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tq_tail,
+               const __grid_constant__ CUtensorMap tk_tail,
+               const __grid_constant__ CUtensorMap tv_tail,
+               const __grid_constant__ CUtensorMap tdo_tail,
                const float* __restrict__ lse_p,
                const float* __restrict__ dsum_p,
                __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
@@ -681,8 +702,8 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
     regs_dec<24>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(kv_full, 2 * L::kTile);
-      tma_load_tile<HD>(sk, &tk, kv_full, kh, k_first, b);
-      tma_load_tile<HD>(sv, &tv, kv_full, kh, k_first, b);
+      tma_load_tile<HD>(sk, &tk, kv_full, kh, k_first, b, &tk_tail);
+      tma_load_tile<HD>(sv, &tv, kv_full, kh, k_first, b, &tv_tail);
       for (int n = 0; n < n_iter; ++n) {
         const int stage = n % L::kStages;
         mbar_wait(&empty[stage], ((n / L::kStages) & 1) ^ 1);
@@ -693,9 +714,10 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap tq,
         const size_t stat = (static_cast<size_t>(b) * H + h) * Sqp +
                             t * kTcStep;
         mbar_expect_tx(&full[stage], 2 * L::kTile + 512);
-        tma_load_tile<HD>(qs, &tq, &full[stage], h, t * kTcStep, b);
+        tma_load_tile<HD>(qs, &tq, &full[stage], h, t * kTcStep, b,
+                          &tq_tail);
         tma_load_tile<HD>(qs + L::kTile, &tdo, &full[stage], h, t * kTcStep,
-                          b);
+                          b, &tdo_tail);
         bulk_load(st, lse_p + stat, 256, &full[stage]);
         bulk_load(st + 64, dsum_p + stat, 256, &full[stage]);
       }
@@ -857,6 +879,10 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap tdo,
+             const __grid_constant__ CUtensorMap tq_tail,
+             const __grid_constant__ CUtensorMap tk_tail,
+             const __grid_constant__ CUtensorMap tv_tail,
+             const __grid_constant__ CUtensorMap tdo_tail,
              const float* __restrict__ lse_p,
              const float* __restrict__ dsum_p, __nv_bfloat16* __restrict__ dq,
              int Sq, int Sqp, int Sk, int H, int K, int hd, int causal,
@@ -902,9 +928,9 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_expect_tx(q_full, 2 * kBlocks * L::kTile);
       for (int r = 0; r < kBlocks; ++r) {
         tma_load_tile<HD>(sq + r * L::kTile, &tq, q_full, h,
-                          q_first + 64 * r, b);
+                          q_first + 64 * r, b, &tq_tail);
         tma_load_tile<HD>(sdo + r * L::kTile, &tdo, q_full, h,
-                          q_first + 64 * r, b);
+                          q_first + 64 * r, b, &tdo_tail);
       }
       int stage = 0;
       uint32_t phase = 0;
@@ -912,9 +938,10 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(&empty[stage], phase ^ 1);
         uint8_t* ks = sst + stage * 2 * L::kTile;
         mbar_expect_tx(&full[stage], 2 * L::kTile);
-        tma_load_tile<HD>(ks, &tk, &full[stage], kh, t * kTcStep, b);
+        tma_load_tile<HD>(ks, &tk, &full[stage], kh, t * kTcStep, b,
+                          &tk_tail);
         tma_load_tile<HD>(ks + L::kTile, &tv, &full[stage], kh,
-                          t * kTcStep, b);
+                          t * kTcStep, b, &tv_tail);
         if (++stage == L::kStages) {
           stage = 0;
           phase ^= 1;
@@ -1013,6 +1040,14 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
   if (e == 0) e = fa_tc::make_map(&tk, k, hd, K, Sk, B);
   if (e == 0) e = fa_tc::make_map(&tv, v, hd, K, Sk, B);
   if (e == 0) e = fa_tc::make_map(&tdo, dout, hd, H, Sq, B);
+  // the tail boxes' maps (hd 80 build); unused copies elsewhere
+  CUtensorMap tq_tail = tq, tk_tail = tk, tv_tail = tv, tdo_tail = tdo;
+  if (fa_tc::Tile<HD>::kTail > 0) {
+    if (e == 0) e = fa_tc::make_map(&tq_tail, q, hd, H, Sq, B, true);
+    if (e == 0) e = fa_tc::make_map(&tk_tail, k, hd, K, Sk, B, true);
+    if (e == 0) e = fa_tc::make_map(&tv_tail, v, hd, K, Sk, B, true);
+    if (e == 0) e = fa_tc::make_map(&tdo_tail, dout, hd, H, Sq, B, true);
+  }
   if (e != 0) return e;
   // opt in to the dynamic shared memory once, before the first launch
   // (outside any CUDA-graph capture that follows it)
@@ -1045,7 +1080,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
   const dim3 kv_grid(K * ns * (L::kTwoPass ? 2 : 1), B,
                      (Sk + kTcStep - 1) / kTcStep);
   dkdv_tc_kernel<HD><<<kv_grid, kTcThreads, L::kSmem, s>>>(
-      tq, tk, tv, tdo, lse_p, dsum_p, static_cast<__nv_bfloat16*>(dk),
+      tq, tk, tv, tdo, tq_tail, tk_tail, tv_tail, tdo_tail, lse_p, dsum_p,
+      static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), part, ns, Sq, Sqp, Sk, H, K, hd,
       causal, window, q_offset, kv_len, scale);
   err = cudaGetLastError();
@@ -1062,7 +1098,8 @@ int launch_tc(const void* q, const void* k, const void* v, const void* o,
   }
   const dim3 q_grid(H, B, (Sq + L::kRowsQ - 1) / L::kRowsQ);
   dq_tc_kernel<HD><<<q_grid, kTcThreads, L::kSmem, s>>>(
-      tq, tk, tv, tdo, lse_p, dsum_p, static_cast<__nv_bfloat16*>(dq), Sq,
+      tq, tk, tv, tdo, tq_tail, tk_tail, tv_tail, tdo_tail, lse_p, dsum_p,
+      static_cast<__nv_bfloat16*>(dq), Sq,
       Sqp, Sk, H, K, hd, causal, window, q_offset, kv_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1095,10 +1132,16 @@ extern "C" int fa_flash_attention_bwd(
 }
 
 // Head dims the tensor-core backward takes (bf16 only): those that run
-// in its 64, 128 or 256 instantiation. The wrapper routes other bf16 head
-// dims (hd <= 32) and f32 to fa_flash_attention_bwd.
+// in its 64, 80, 128 or 256 instantiation. The wrapper routes other bf16
+// head dims (hd <= 32) and f32 to fa_flash_attention_bwd.
 extern "C" int fa_bwd_tc_supports_head_dim(int hd) {
   return fa_tc::head_dim_ok(hd) && hd > 32;
+}
+
+// The build of the tensor-core backward that head dim hd runs in (64,
+// 80, 128 or 256: the forward's rule, `tc_head_dim`), 0 where it has none.
+extern "C" int fa_bwd_tc_build_head_dim(int hd) {
+  return fa_bwd_tc_supports_head_dim(hd) ? fa_tc::tc_head_dim(hd) : 0;
 }
 
 // The f32 scratch the bf16 tensor-core backward takes at these shapes,
@@ -1109,7 +1152,7 @@ extern "C" long long fa_bwd_tc_scratch_floats(int B, int Sq, int Sk, int H,
                                               int K, int hd) {
   const long long Sqp = (Sq + kTcStep - 1) / kTcStep * kTcStep;
   long long n = 2LL * B * H * Sqp;
-  const int ns = head_groups(B, Sk, H, K, fa_tc::padded_head_dim(hd) == 256);
+  const int ns = head_groups(B, Sk, H, K, fa_tc::tc_head_dim(hd) == 256);
   if (ns > 1) n += 2LL * ns * B * Sk * K * hd;
   return n;
 }
@@ -1127,9 +1170,13 @@ extern "C" int fa_flash_attention_bwd_tc(
   const auto s = static_cast<cudaStream_t>(stream);
   if (!fa_bwd_tc_supports_head_dim(hd))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (fa_tc::padded_head_dim(hd)) {
+  switch (fa_tc::tc_head_dim(hd)) {
     case 64:
       return launch_tc<64>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq,
+                           Sk, H, K, hd, causal, window, q_offset, kv_len,
+                           scale, s);
+    case 80:
+      return launch_tc<80>(q, k, v, o, dout, lse, scratch, dq, dk, dv, B, Sq,
                            Sk, H, K, hd, causal, window, q_offset, kv_len,
                            scale, s);
     case 128:

@@ -13,7 +13,7 @@
 // one TMA load with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of
 // row r sits at chunk c ^ (r % 8). Boxes start on 1024-byte boundaries,
 // so the swizzle that TMA applies and the one wgmma reads agree. The
-// forward's hd-80 build adds a tail box of the last 16 columns, 64 rows
+// hd-80 builds add a tail box of the last 16 columns, 64 rows
 // x 32 bytes (2 KiB) in CU_TENSOR_MAP_SWIZZLE_32B (chunk c of row r at
 // c ^ ((r / 4) % 2)), read by wgmma through descriptors of the 32-byte
 // layout: one k-slice of Q.K^T, and the n16 part of P.V (`Tile`).
@@ -58,10 +58,10 @@ constexpr int kRowBytes = 128;                // one swizzled box row
 // -- head dims -----------------------------------------------------------
 
 // Both flash sources are built for head dims 32, 64, 128 and 256, and the
-// tensor-core forward also for 80. Any hd with hd % 8 == 0 (16-byte rows
-// of bf16, as TMA's strides need) up to 256 runs in the next of them:
-// `padded_head_dim` for the backward and the CUDA-core forward,
-// `fwd_tc_head_dim` for the tensor-core forward (hd 72 and 80 in the 80
+// tensor-core kernels, forward and backward, also for 80. Any hd with
+// hd % 8 == 0 (16-byte rows of bf16, as TMA's strides need) up to 256
+// runs in the next of them: `padded_head_dim` for the CUDA-core kernels,
+// `tc_head_dim` for the tensor-core ones (hd 72 and 80 in the 80
 // build). Its columns from hd on read as zeros (the maps' dimension is
 // hd, so TMA fills the rest of a box with zeros; the CUDA-core kernels
 // skip those loads) and are never stored. A zero column adds exact zeros
@@ -73,7 +73,7 @@ __host__ __device__ inline bool head_dim_ok(int hd) {
 __host__ __device__ inline int padded_head_dim(int hd) {
   return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
 }
-__host__ __device__ inline int fwd_tc_head_dim(int hd) {
+__host__ __device__ inline int tc_head_dim(int hd) {
   return hd <= 64 ? 64 : hd <= 80 ? 80 : hd <= 128 ? 128 : 256;
 }
 

@@ -15,15 +15,16 @@ libraries' `fa_supports_head_dim` / `fa_bwd_supports_head_dim` give the
 same answer), its columns from hd on read as zeros inside the kernel
 (TMA fills them; the CUDA-core kernels skip the loads) and never
 stored, with the scale 1/sqrt(hd). No padded copy is made. The
-tensor-core forward is also built for 80 (`TC_FORWARD_HEAD_DIMS`,
-`tc_forward_head_dim`): hd 72 and 80 run there, not in the 128 build.
+tensor-core kernels, forward and backward, are also built for 80
+(`TC_HEAD_DIMS`, `tc_head_dim`, one rule for both directions): hd 72 and
+80 run there, not in the 128 build.
 
 On the card the route is chosen by dtype and head dim alone, before the
-launch: bf16 at hd 33-256 launches the tensor-core kernels (forward in
-its 64, 80, 128 or 256 build, backward in its 64, 128 or 256 one) and
-counts as `flash_attention` / `flash_attention_bwd`; f32, and bf16 at
-hd <= 32, launches the CUDA-core kernels and counts as
-`flash_attention_f32` / `flash_attention_bwd_f32`.
+launch: bf16 at hd 33-256 launches the tensor-core kernels (forward and
+backward each in its 64, 80, 128 or 256 build) and counts as
+`flash_attention` / `flash_attention_bwd`; f32, and bf16 at hd <= 32,
+launches the CUDA-core kernels and counts as `flash_attention_f32` /
+`flash_attention_bwd_f32`.
 
 `flash_attention` is differentiable: when a gradient is wanted it runs
 as an autograd Function whose forward also keeps each row's
@@ -47,7 +48,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)        # the kernels' instantiations
-TC_FORWARD_HEAD_DIMS = (64, 80, 128, 256)   # the tensor-core forward's
+TC_HEAD_DIMS = (64, 80, 128, 256)     # the tensor-core kernels' builds
 
 
 def padded_head_dim(hd: int) -> int:
@@ -60,15 +61,15 @@ def padded_head_dim(hd: int) -> int:
     return next(d for d in HEAD_DIMS if d >= hd)
 
 
-def tc_forward_head_dim(hd: int) -> int:
-    """The build of the bf16 tensor-core forward that head dim `hd` (33 to
-    256) runs in: the next of TC_FORWARD_HEAD_DIMS (as
-    csrc/flash_wgmma.cuh `fwd_tc_head_dim`)."""
+def tc_head_dim(hd: int) -> int:
+    """The build of the bf16 tensor-core kernels, forward and backward,
+    that head dim `hd` (33 to 256) runs in: the next of TC_HEAD_DIMS (as
+    csrc/flash_wgmma.cuh `tc_head_dim`)."""
     padded_head_dim(hd)
     if hd <= 32:
         raise ValueError(f"flash_attention: head_dim {hd} runs on the CUDA "
                          f"cores, not the tensor cores")
-    return next(d for d in TC_FORWARD_HEAD_DIMS if d >= hd)
+    return next(d for d in TC_HEAD_DIMS if d >= hd)
 
 
 def _lib() -> ctypes.CDLL:
@@ -102,6 +103,8 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.fa_flash_attention_bwd_tc.restype = _I
         lib.fa_bwd_tc_supports_head_dim.argtypes = [_I]
         lib.fa_bwd_tc_supports_head_dim.restype = _I
+        lib.fa_bwd_tc_build_head_dim.argtypes = [_I]
+        lib.fa_bwd_tc_build_head_dim.restype = _I
         lib.fa_bwd_tc_scratch_floats.argtypes = [_I] * 6
         lib.fa_bwd_tc_scratch_floats.restype = ctypes.c_longlong
     return lib

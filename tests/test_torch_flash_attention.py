@@ -129,10 +129,10 @@ def test_padded_head_dim(hd, built):
 def test_tc_forward_head_dim(hd, built):
     """The bf16 tensor-core forward is also built for 80: hd 72 and 80 run
     there, the rest in the next of 64, 128, 256 (as csrc/flash_wgmma.cuh
-    `fwd_tc_head_dim`); hd <= 32 has no tensor-core build."""
-    assert ops.tc_forward_head_dim(hd) == built
+    `tc_head_dim`); hd <= 32 has no tensor-core build."""
+    assert ops.tc_head_dim(hd) == built
     with pytest.raises(ValueError, match="CUDA cores"):
-        ops.tc_forward_head_dim(32)
+        ops.tc_head_dim(32)
 
 
 @pytest.mark.parametrize("hd", [0, 4, 84, 260, 512])

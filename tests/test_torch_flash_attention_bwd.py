@@ -148,11 +148,16 @@ def test_bf16_backward_routes_to_the_tensor_cores(monkeypatch):
     def entry(name):
         return staticmethod(lambda *a: calls.append((name, a[15])) or 0)
 
+    def tc(hd):
+        return int(32 < hd <= 256 and hd % 8 == 0)
+
     stub = type("Lib", (), {
         "fa_bwd_supports_head_dim":
             staticmethod(lambda hd: int(0 < hd <= 256 and hd % 8 == 0)),
-        "fa_bwd_tc_supports_head_dim":
-            staticmethod(lambda hd: int(32 < hd <= 256 and hd % 8 == 0)),
+        "fa_bwd_tc_supports_head_dim": staticmethod(tc),
+        "fa_bwd_tc_build_head_dim": staticmethod(
+            lambda hd: (64 if hd <= 64 else 80 if hd <= 80 else
+                        128 if hd <= 128 else 256) if tc(hd) else 0),
         "fa_bwd_tc_scratch_floats": staticmethod(lambda *a: 1024),
         "fa_flash_attention_bwd_tc": entry("tc"),
         "fa_flash_attention_bwd": entry("cuda cores")})
@@ -162,6 +167,7 @@ def test_bf16_backward_routes_to_the_tensor_cores(monkeypatch):
     for hd, dtype, want in ((256, torch.bfloat16, "tc"),
                             (200, torch.bfloat16, "tc"),
                             (80, torch.bfloat16, "tc"),
+                            (72, torch.bfloat16, "tc"),
                             (32, torch.bfloat16, "cuda cores"),
                             (256, torch.float32, "cuda cores")):
         q, out, do = (torch.empty((1, 4, 2, hd), device="meta", dtype=dtype)
@@ -176,7 +182,25 @@ def test_bf16_backward_routes_to_the_tensor_cores(monkeypatch):
         assert runtime.counts() == {"flash_attention_bwd" if want == "tc"
                                     else "flash_attention_bwd_f32": 1}
         assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+        # the build the library reports for a bf16 head dim: the wrappers'
+        # rule (hd 72 and 80 in the 80 build), none at hd <= 32
+        if dtype == torch.bfloat16:
+            assert stub.fa_bwd_tc_build_head_dim(hd) == (
+                ops.tc_head_dim(hd) if want == "tc" else 0)
     runtime.reset_counts()
+
+
+@pytest.mark.parametrize("hd,built", [(40, 64), (72, 80), (80, 80),
+                                      (88, 128), (200, 256)])
+def test_tc_backward_head_dim(hd, built):
+    """The bf16 tensor-core backward is built for 64, 80, 128 and 256, by
+    the forward's rule (csrc/flash_wgmma.cuh `tc_head_dim`, the
+    library's `fa_bwd_tc_build_head_dim`): hd 72 and 80 run in the 80
+    build, not the 128 one; hd <= 32 has no tensor-core build."""
+    assert ops.tc_head_dim(hd) == built
+    assert ops.tc_head_dim(hd) <= ops.padded_head_dim(hd)
+    with pytest.raises(ValueError, match="CUDA cores"):
+        ops.tc_head_dim(32)
 
 
 # -- the tensor-core kernels' arithmetic, emulated in plain PyTorch ------
@@ -221,13 +245,13 @@ def _split_product(a, b, terms, tile=64):
 
 
 def _tc_operands(q, k, v, out, do, lse, *, causal, window, q_offset):
-    """The kernels' f32 operands, zero-padded to the built head dim
-    (`ops.padded_head_dim`), with P and dS from S and dP at the true
+    """The kernels' f32 operands, zero-padded to the tensor-core build's
+    head dim (`ops.tc_head_dim`), with P and dS from S and dP at the true
     scale 1/sqrt(hd): (scale, qf, kf, dof, p, ds)."""
     Sq, hd = q.shape[1], q.shape[3]
     Sk = k.shape[1]
     scale = 1.0 / np.sqrt(hd)
-    hdp = ops.padded_head_dim(hd)
+    hdp = ops.tc_head_dim(hd)
     q, k, v, out, do = (_pad(x, hdp) for x in (q, k, v, out, do))
     qf, kf, vf = ref._heads_f32(q, k, v)
     dof = do.float().transpose(1, 2)
@@ -242,12 +266,15 @@ def _tc_operands(q, k, v, out, do, lse, *, causal, window, q_offset):
 
 def _grads_out(q, k, dq, dk, dv):
     """(B, H, S, hdp) f32 sums -> dq (B, Sq, H, hd) and dk, dv summed over
-    the query heads of each kv head, in q's dtype, padding dropped."""
+    the query heads of each kv head (unless they come as (B, K, Sk, hdp)
+    sums already), in q's dtype, padding dropped."""
     B, _, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
 
     def per_kv_head(x):
-        return x.reshape(B, K, H // K, Sk, -1).sum(2).transpose(1, 2)
+        if x.shape[1] != K:
+            x = x.reshape(B, K, H // K, Sk, -1).sum(2)
+        return x.transpose(1, 2)
 
     return tuple(x[..., :hd].contiguous().to(q.dtype) for x in (
         dq.transpose(1, 2), per_kv_head(dk), per_kv_head(dv)))
@@ -285,15 +312,94 @@ def _emulate_two_pass_backward(q, k, v, out, do, lse, *, causal, window,
     return _grads_out(q, k, dq, dk, dv)
 
 
+def _head_groups(B, Sk, H, K, two_pass, sms=132):
+    """csrc/flash_attention_bwd.cu `head_groups` on a card of `sms` SMs:
+    the fewest divisor of G = H / K that gives the dkdv grid two blocks an
+    SM, else G."""
+    blocks = K * B * -(-Sk // 64) * (2 if two_pass else 1)
+    G = H // K
+    return next((ns for ns in range(1, G)
+                 if G % ns == 0 and blocks * ns >= 2 * sms), G)
+
+
+def _query_tiles(k_first, Sq, Sk, causal, window, q_offset):
+    """The query tiles [t_begin, t_end) of 64 rows that the dkdv block of
+    keys k_first .. k_first + 63 walks (dkdv_tc_kernel's range)."""
+    key_hi = min(k_first + 64, Sk) - 1
+    i_begin, i_end = 0, Sq if key_hi >= k_first else 0
+    if causal:
+        i_begin = max(i_begin, k_first - q_offset)
+    if window > 0:
+        i_end = min(i_end, key_hi + window - q_offset)
+    return (i_begin // 64, -(-i_end // 64)) if i_end > i_begin else (0, 0)
+
+
+def _tile_partials(a, b, tile=64):
+    """The fresh f32 partial of each tile of 64 along the reduction of
+    a @ b, a in two bf16 terms: (..., tiles, rows, cols)."""
+    parts = []
+    for c0 in range(0, a.shape[-1], tile):
+        rest, part = a[..., c0:c0 + tile], 0.0
+        for _ in range(2):
+            t = rest.to(torch.bfloat16).float()
+            part = part + t @ b[..., c0:c0 + tile, :]
+            rest = rest - t
+        parts.append(part)
+    return torch.stack(parts, -3)
+
+
+def _emulate_alternate_backward(q, k, v, out, do, lse, *, causal, window,
+                                q_offset):
+    """The hd-64 and hd-80 builds' dK/dV order: a dkdv block (64 keys, one
+    head group of a kv head, `_head_groups`) walks its (query head, query
+    tile) pairs in order, its two consumers taking alternate pairs, each
+    adding the pairs' fresh f32 partials in order; the second consumer's
+    sums are added to the first's, the groups' sums in group order
+    (reduce_kernel), and dK is scaled last. dQ as in the one-pass
+    emulation (a consumer walks its kv tiles in order)."""
+    scale, qf, kf, dof, p, ds = _tc_operands(
+        q, k, v, out, do, lse, causal=causal, window=window,
+        q_offset=q_offset)
+    B, H, Sq, hdp = qf.shape
+    Sk, K = k.shape[1], k.shape[2]
+    ns = _head_groups(B, Sk, H, K, False)
+    Gb = H // K // ns
+
+    def by_blocks(parts):
+        parts = parts.reshape(B, K, ns, Gb, *parts.shape[2:])
+        grad = torch.zeros((B, K, Sk, hdp))
+        for k0 in range(0, Sk, 64):
+            t0, t1 = _query_tiles(k0, Sq, Sk, causal, window, q_offset)
+            keys = slice(k0, k0 + 64)
+            for grp in range(ns):
+                acc = [torch.zeros_like(grad[:, :, keys]) for _ in range(2)]
+                for n in range(Gb * (t1 - t0)):
+                    g, t = divmod(n, t1 - t0)
+                    acc[n % 2] = acc[n % 2] + parts[:, :, grp, g, t0 + t, keys]
+                grad[:, :, keys] = (acc[0] + acc[1] if grp == 0 else
+                                    grad[:, :, keys] + (acc[0] + acc[1]))
+        return grad
+
+    dv = by_blocks(_tile_partials(p.transpose(-1, -2), dof))
+    dk = by_blocks(_tile_partials(ds.transpose(-1, -2), qf)) * scale
+    dq = _split_product(ds, kf, 2) * scale
+    return _grads_out(q, k, dq, dk, dv)
+
+
 # (B, Sq, Sk, H, K, hd, causal, window): hd 64 (SmolLM's) and 128, causal
 # and windowed, GQA; hd 256 (RecurrentGemma's) windowed over 2 and 4
-# query heads a kv head, and hd 200 in the 256 build
+# query heads a kv head, and hd 200 in the 256 build; hd 80 (StableLM-
+# 3B's) causal, MHA, and windowed over 2 query heads a kv head, and hd 72,
+# both in the 80 build
 TC_CASES = [
     (1, 1024, 1024, 3, 1, 64, True, 0),
     (1, 768, 768, 4, 2, 128, True, 200),
     (1, 1024, 1024, 2, 1, 256, True, 512),
     (1, 1024, 1024, 4, 1, 256, True, 1024),
     (1, 512, 512, 2, 1, 200, True, 128),
+    (1, 1024, 1024, 2, 2, 80, True, 0),
+    (1, 768, 768, 4, 2, 80, True, 200),
+    (1, 512, 512, 2, 2, 72, True, 0),
 ]
 
 
@@ -336,10 +442,39 @@ def test_two_pass_backward_arithmetic_within_rule(case):
         assert _misses(a, c) == 0
 
 
+@pytest.mark.parametrize("case", [c for c in TC_CASES
+                                  if ops.tc_head_dim(c[5]) in (64, 80)],
+                         ids=str)
+def test_alternate_backward_arithmetic_within_rule(case):
+    """The hd-64 and hd-80 builds' dK/dV order (the consumers on alternate
+    (head, query tile) pairs, their sums added at the end; head groups
+    added in order): every gradient within 2 bf16 ulps of the plain
+    backward and of the one-pass emulation."""
+    q, k, v, out, do, lse, kw = _bf16_case(case)
+    want = ref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    got = _emulate_alternate_backward(q, k, v, out, do, lse, **kw)
+    one = _emulate_tc_backward(q, k, v, out, do, lse, terms=2, **kw)
+    for a, b, c in zip(got, want, one):
+        assert a.shape == b.shape and _misses(a, b) == 0
+        assert _misses(a, c) == 0
+
+
 def test_one_bf16_term_of_p_and_ds_fails_the_rule():
     """P and dS rounded once to bf16 miss the rule in every gradient: why
     the kernels split them."""
     q, k, v, out, do, lse, kw = _bf16_case(TC_CASES[0])
+    want = ref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
+    got = _emulate_tc_backward(q, k, v, out, do, lse, terms=1, **kw)
+    assert all(_misses(a, b) > 100 for a, b in zip(got, want))
+
+
+def test_one_bf16_term_fails_the_rule_at_hd80():
+    """At hd 80 too, P and dS rounded once to bf16 miss the rule in every
+    gradient, while two terms pass
+    (test_tensor_core_backward_arithmetic_within_rule): the 80 build
+    keeps the two terms."""
+    case = next(c for c in TC_CASES if c[5] == 80)
+    q, k, v, out, do, lse, kw = _bf16_case(case)
     want = ref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
     got = _emulate_tc_backward(q, k, v, out, do, lse, terms=1, **kw)
     assert all(_misses(a, b) > 100 for a, b in zip(got, want))
