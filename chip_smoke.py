@@ -130,10 +130,31 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      whenever selected), 3 rounds: seconds a round, peak memory, losses,
      late and drained (late in round 1, drained later), and phase 11's
      launch counts every round;
- 17. prints the card line, the `kernels` JSON line (each row with its
+ 17. the obs path: `low-bandwidth-int4` as in phase 5 with
+     `run.obs.enabled`, the CSV mirror and a profiler window over round
+     2, counts reset just before and read just after: the stream, read
+     back with the port's `read_events`, has round rows equal to the
+     record's bit for bit, stage spans (phase host) covering LocalUpdate,
+     ScoreSelect, Uplink, Aggregate, Downlink, BestTracking, Step and
+     Eval with each round's stages summing to no more than its Step,
+     KernelEvents naming the four wire kernels with backend cuda and
+     interpret false, and a run_end carrying final_acc; each wire kernel
+     launches 30 times, as in phase 5; the Chrome trace holds the stage
+     and "round" ranges and round 2's device launches (quant_pack_kernel
+     20, dequant_kernel 10, wire_agg_kernel 10); prints each round's time
+     beside phase 5's (obs off) and its per-stage host times, then the
+     steady rounds of four more runs, obs off and on in turns;
+ 18. mesh checkpoints: `mesh/smollm-smoke` at full width (phase 11's
+     spec) for 2 rounds with `run.ckpt_dir` and obs on: ckpt_steps [0,
+     1], phase 11's launches a round, the latest checkpoint restored into
+     a template of the live params on the card bitwise equal to them;
+     prints the checkpoint's size, one more save's time (device to host,
+     savez, rename) and the restore's, and removes the directory;
+ 19. prints the card line, the `kernels` JSON line (each row with its
      share of bound = bound_ms / ms; each kernel's first row with its
-     launches in the int4 straggler run, the int4 population run and the
-     mesh straggler run; each flash row with its cores,
+     launches in the int4 straggler run, the int4 population run, the
+     mesh straggler run, the obs run and the mesh checkpoint run; each
+     flash row with its cores,
      the CUDA-core kernel's and the f32 path's times; a row of the
      forward at the mesh shape, rows of quant_pack_ef, wire_agg and
      dequant_unpack at the large leaf, of quant_pack and dequant_unpack
@@ -141,6 +162,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      at hd 80 and of the backward at hd 256) and, last, the ok line.
 
 Tolerances: payloads, scales, decodes and the wire_agg median bitwise;
+the obs stream's round rows and the restored checkpoint bitwise;
 the error-feedback residual within 1 ulp of |acc| (fmaf in the kernel,
 one rounding from f64 in the plain version); wire_agg mean, sum and
 trimmed mean within 2^-21 * sum|terms| (both sum in the same order, so
@@ -157,7 +179,7 @@ within 2 bf16 ulps of `attention_bwd_ref` (the ulp taken at no less than
 rowsum(dO * O) from the f32 output, the kernel from the bf16 one). The
 small mesh rounds: losses within 5e-6, params and velocities within
 2e-7, masks equal (as the CPU parity tests). Every timing line of phases
-13-16 carries the card's name and power limit.
+13-18 carries the card's name and power limit.
 """
 import json
 import math
@@ -2032,6 +2054,210 @@ def mesh_straggler_path(card: str) -> dict:
     return counts
 
 
+# -- this slice: the obs event stream and mesh checkpoints ----------------
+
+STAGES = ("LocalUpdate", "ScoreSelect", "Uplink", "Aggregate", "Downlink",
+          "BestTracking")
+# each wire kernel's device function, as the Chrome trace names it, and
+# its launches in the one profiled round (quant_pack_kernel serves both
+# quant_pack and quant_pack_ef)
+TRACE_KERNELS = {"quant_pack_kernel": 2 * LEAVES, "dequant_kernel": LEAVES,
+                 "wire_agg_kernel": LEAVES}
+# blocks of (off, on, on, off) runs that time the obs stream's cost
+TURN_BLOCKS = 3
+
+
+def obs_path(card: str, main_rec: dict, main_counts: dict) -> dict:
+    """Phase 17: first the obs stream's cost, from runs with obs off and on
+    in turns (no profiler). Then `low-bandwidth-int4` at full width for
+    ROUNDS rounds with the obs stream, its CSV mirror and a one-round
+    profiler window (round 2), counts reset just before and read just
+    after. The stream, read back with the port's reader: its round rows
+    equal the record's bit for bit, its stages cover the pipeline, Step
+    and Eval, its kernel events name the four wire kernels on the card
+    (not the plain versions), and its run_end carries final_acc; the
+    launches equal the obs-off main run's; the Chrome trace holds the
+    stage ranges and each wire kernel's device launches. Prints each
+    round's time beside the obs-off main run's and each round's
+    per-stage host times."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.experiments import get_scenario, override, run
+    from repro_torch.kernels import runtime
+    from repro_torch.obs import read_events
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="obs-", dir=ROOT / "build"))
+    spec = override(get_scenario("low-bandwidth-int4"),
+                    f"run.rounds={ROUNDS}", "run.obs.enabled=true",
+                    "run.obs.csv=true", f"run.obs.dir={tmp}",
+                    f"run.obs.profile_dir={tmp / 'prof'}",
+                    "run.obs.profile_rounds=1")
+    # the stream's cost first: a run after a profiled round reads slow
+    # (PERF.md section 7). Runs with obs off and on in turns, no
+    # profiler, rounds 2-3 of each (round 1 warms up); the cost counts
+    # as resolved only where the two sides' samples do not overlap
+    steady = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off") * TURN_BLOCKS:
+        ab = override(spec, f"run.obs.enabled={mode == 'on'}",
+                      "run.obs.csv=false", "run.obs.profile_dir=none")
+        steady[mode] += run(ab, verbose=False).record["round_time_s"][1:]
+    off, on = sorted(steady["off"]), sorted(steady["on"])
+    cost = statistics.median(on) - statistics.median(off)
+    verdict = (f"obs cost resolved: {cost:+.4f} s a round"
+               if on[0] > off[-1] or on[-1] < off[0] else
+               f"obs cost not resolved: the medians differ by {cost:+.4f} "
+               f"s, inside the spread (off {off[0]:.4f}-{off[-1]:.4f}, on "
+               f"{on[0]:.4f}-{on[-1]:.4f})")
+    print(f"[obs] in turns ((off, on, on, off) x {TURN_BLOCKS}), rounds "
+          f"2-3 of each run: obs off median {statistics.median(off):.4f} s "
+          f"{[round(v, 4) for v in steady['off']]}, obs on median "
+          f"{statistics.median(on):.4f} s "
+          f"{[round(v, 4) for v in steady['on']]}; {verdict} ({card})",
+          flush=True)
+    runtime.reset_counts()
+    result = run(spec, verbose=False)
+    torch.cuda.synchronize()
+    counts = runtime.counts()
+    rec = result.record
+    evs = read_events(result.events_path)
+    rounds = [e for e in evs if e.kind == "round"]
+    hist = json.loads(json.dumps(result.to_dict()))["metrics"]
+    check([e.round for e in rounds] == list(range(ROUNDS)),
+          f"obs: round events {[e.round for e in rounds]}")
+    check({k for k, v in hist.items() if isinstance(v, list)
+           and len(v) == ROUNDS} == set(rounds[0].metrics),
+          "obs: round event keys differ from the record's per-round keys")
+    check(all(hist[k][e.round] == v for e in rounds
+              for k, v in e.metrics.items()),
+          "obs: round events differ from the record's rows")
+    stages = [e for e in evs if e.kind == "stage"]
+    names = {e.stage for e in stages}
+    check(set(STAGES) | {"Step", "Eval"} <= names,
+          f"obs: stage spans {sorted(names)}")
+    check({e.phase for e in stages} == {"host"},
+          "obs: a stage span not phase=host")
+    kernels = [e for e in evs if e.kind == "kernel"]
+    check({e.name for e in kernels} == set(MAIN_BITS)
+          and all(e.backend == "cuda" and not e.interpret for e in kernels)
+          and all(e.info["bits"] == MAIN_BITS[e.name] for e in kernels),
+          f"obs: kernel events {[(e.name, e.backend, e.interpret, e.info) for e in kernels]}")
+    check(evs[0].kind == "run_start" and evs[-1].kind == "run_end"
+          and evs[-1].status == "ok"
+          and evs[-1].totals.get("final_acc") == rec["final_acc"],
+          f"obs: stream ends {evs[-1]}")
+    for name in MAIN_BITS:
+        check(counts.get(name, 0) == main_counts[name] == ROUNDS * LEAVES,
+              f"obs: {name} launched {counts.get(name, 0)} times, the "
+              f"obs-off run {main_counts[name]}")
+    trace = tmp / "prof" / f"{evs[0].run_id}.trace.json"
+    check(trace.exists(), f"obs: no Chrome trace at {trace}")
+    tev = json.loads(trace.read_text())["traceEvents"]
+    tnames = {e.get("name") for e in tev}
+    check(set(STAGES) | {"round"} <= tnames,
+          f"obs: trace ranges lack {sorted(set(STAGES) - tnames)}")
+    launched = {k: sum(1 for e in tev if e.get("cat") == "kernel"
+                       and k in e.get("name", "")) for k in TRACE_KERNELS}
+    check(launched == TRACE_KERNELS,
+          f"obs: the trace's wire kernel launches {launched}, expected "
+          f"{TRACE_KERNELS}")
+    csv_rows = (Path(result.events_path).with_suffix(".csv").read_text()
+                .strip().splitlines())
+    check(len(csv_rows) == 1 + ROUNDS, f"obs: {len(csv_rows)} CSV lines")
+    for t in range(ROUNDS):
+        span = {e.stage: e.dur_s for e in stages if e.round == t}
+        inner = sum(span[k] for k in STAGES)
+        check(inner <= span["Step"],
+              f"obs: round {t + 1} stages {inner} s over Step "
+              f"{span['Step']} s")
+        print(f"[obs] round {t + 1}{' (profiled)' if t == 1 else ''}: "
+              f"{rec['round_time_s'][t]:.4f} s obs on, "
+              f"{main_rec['round_time_s'][t]:.4f} s obs off (phase 5); "
+              f"host ms Step {1e3 * span['Step']:.2f} = stages "
+              f"{1e3 * inner:.2f} (" + ", ".join(
+                  f"{k} {1e3 * span[k]:.2f}" for k in STAGES)
+              + f") + sync and the rest; Eval {1e3 * span['Eval']:.2f} "
+              f"({card})", flush=True)
+    print(f"[obs] {len(evs)} events, {len(kernels)} kernel events "
+          f"({', '.join(sorted(e.name for e in kernels))} on cuda), "
+          f"launches {counts}; trace {trace.stat().st_size} B with "
+          f"{launched} device launches in round 2", flush=True)
+    shutil.rmtree(tmp)
+    return counts
+
+
+def mesh_checkpoint_path(card: str) -> dict:
+    """Phase 18: `mesh/smollm-smoke` at full width (phase 11's spec) for 2
+    rounds with `run.ckpt_dir` and the obs stream: the checkpoints of
+    rounds 0 and 1, the latest restored into a template of the live
+    params on the card and compared bitwise; phase 11's launch counts a
+    round; the checkpoint's size, and the time of one more save (device
+    to host, savez, rename) and of the restore. Removes the directory."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.experiments import get_scenario, override, run
+    from repro_torch.kernels import runtime
+    from repro_torch.obs import read_events
+    from repro_torch.pytree import tree_leaves
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="ckpt-", dir=ROOT / "build"))
+    spec = override(get_scenario("mesh/smollm-smoke"), *MESH_SPEC,
+                    "run.rounds=2", f"run.ckpt_dir={tmp / 'ck'}",
+                    "run.obs.enabled=true", f"run.obs.dir={tmp}")
+    torch.cuda.empty_cache()
+    runtime.reset_counts()
+    result = run(spec, verbose=False)
+    torch.cuda.synchronize()
+    counts = runtime.counts()
+    rec = result.record
+    live = result.state.global_params
+    check(rec["ckpt_steps"] == [0, 1], f"ckpt: steps {rec['ckpt_steps']}")
+    per_round = mesh_launches_per_round(get_arch(MESH_ARCH),
+                                        len(tree_leaves(live)))
+    check(rec["launches"] == [per_round] * 2,
+          f"ckpt: launches {rec['launches']}, expected {per_round} a round")
+    mgr = CheckpointManager(tmp / "ck")
+    t0 = time.perf_counter()
+    step, back = mgr.restore(like=live)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(step == 1 and all(
+        a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(tree_leaves(back), tree_leaves(live))),
+        "ckpt: the restored params differ from the final global params")
+    del back
+    size = (tmp / "ck" / "ckpt_00000001.npz").stat().st_size
+    n_params = sum(x.numel() for x in tree_leaves(live))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(2, live, metadata={"arch": MESH_ARCH})
+    save_s = time.perf_counter() - t0
+    evs = read_events(result.events_path)
+    steps = [e.dur_s for e in evs if e.kind == "stage" and e.stage == "Step"]
+    check(evs[-1].kind == "run_end" and evs[-1].status == "ok"
+          and evs[-1].totals.get("final_loss") == rec["global_loss"][-1]
+          and len(steps) == 2, f"ckpt: the stream ends {evs[-1]}")
+    print(f"[ckpt] {MESH_ARCH} full width, 2 rounds with run.ckpt_dir and "
+          f"obs: step {rec['step_time_s'][0]:.4f} / "
+          f"{rec['step_time_s'][1]:.4f} s (Step spans {steps[0]:.4f} / "
+          f"{steps[1]:.4f} s), global loss {rec['global_loss']}, "
+          f"ckpt_steps {rec['ckpt_steps']} ({card})", flush=True)
+    print(f"[ckpt] checkpoint {size} B ({size / 2**20:.1f} MiB) for "
+          f"{n_params} params; one save {save_s:.3f} s (device to host, "
+          f"savez, rename: {size / save_s / 1e9:.2f} GB/s), restore into "
+          f"the card's template {restore_s:.3f} s, bitwise equal ({card})",
+          flush=True)
+    del result, live
+    shutil.rmtree(tmp)
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2112,6 +2338,8 @@ def main() -> None:
     churn_path(card)
     fleet_counts = fleet_path(card)
     mesh_straggler_counts = mesh_straggler_path(card)
+    obs_counts = obs_path(card, rec, counts)
+    ckpt_counts = mesh_checkpoint_path(card)
 
     src = {"quant_pack_ef": ("quant_pack",
                              "src/repro/kernels/quant_pack/quant_pack.py:172"),
@@ -2228,6 +2456,8 @@ def main() -> None:
             k["launches_population"] = fleet_counts.get(k["name"], 0)
             k["launches_mesh_straggler"] = mesh_straggler_counts.get(
                 k["name"], 0)
+            k["launches_obs"] = obs_counts.get(k["name"], 0)
+            k["launches_mesh_ckpt"] = ckpt_counts.get(k["name"], 0)
     for name in ("quant_pack", "dequant_unpack"):
         row = {key: v for key, v in next(
             k for k in kernels if k["name"] == name).items()

@@ -33,9 +33,21 @@ def tree_from_numpy(tree: PyTree, device="cpu") -> PyTree:
 
 
 def tree_to_numpy(tree: PyTree) -> PyTree:
-    """Nested dicts/tuples of tensors -> the same of numpy arrays."""
-    return tree_map(lambda t: t.detach().cpu().numpy()
+    """Nested dicts/tuples of tensors -> the same of numpy arrays, bit for
+    bit (bf16 leaves as `tensor_to_array` gives them)."""
+    return tree_map(lambda t: tensor_to_array(t)
                     if torch.is_tensor(t) else np.asarray(t), tree)
+
+
+def tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> a numpy array on the host, bit for bit. numpy has no
+    bfloat16, so a bf16 tensor becomes its 2-byte words as a `|V2` array:
+    what `np.savez` writes for a JAX bf16 leaf, and what
+    `array_to_tensor` reads back as bf16."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
 
 
 def train_state_from_numpy(np_state: Any, device="cpu") -> SwarmTrainState:
@@ -80,11 +92,15 @@ def population_table_from_numpy(np_table: Any,
 
 
 def array_to_tensor(a) -> torch.Tensor:
-    """One numpy array -> a CPU tensor, dtype kept. A bfloat16 array (as
-    `np.asarray` gives for a JAX bf16 array) crosses bit for bit through
-    its uint16 view, with no import of ml_dtypes."""
+    """One numpy array -> a CPU tensor, dtype kept. A bfloat16 array
+    crosses bit for bit through its uint16 view, with no import of
+    ml_dtypes: ml_dtypes' bfloat16 (what `np.asarray` gives for a JAX
+    bf16 array) or 2-byte raw words `|V2` (what `np.load` gives for a
+    bf16 leaf `np.savez` wrote, and what `tensor_to_array` gives; no
+    other dtype numpy writes is `|V2`)."""
     a = np.array(a)                  # a writable copy
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or (a.dtype.kind == "V"
+                                      and a.dtype.itemsize == 2):
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 

@@ -40,13 +40,10 @@ from repro_torch.comm.budget import CommConfig
 from repro_torch.comm.phy import PhyState
 from repro_torch.core import selection
 from repro_torch.core.selection import SelectionState
+from repro_torch.obs.trace import stage_span
 from repro_torch.pytree import tree_leaves, tree_map
 
 PyTree = Any
-
-# a named range per stage: free unless a torch.profiler session is
-# recording, where it groups the stage's host and device time
-stage_span = torch.profiler.record_function
 
 
 class RoundTelemetry(NamedTuple):

@@ -10,7 +10,8 @@ from repro_torch.experiments.registry import (describe_scenarios,
                                               register_scenario)
 from repro_torch.experiments.runner import (SCHEMA_VERSION, Prepared,
                                             RunResult, build, default_out,
-                                            run, run_prepared, sweep)
+                                            load_result, run, run_prepared,
+                                            sweep)
 from repro_torch.experiments.spec import (AlgoSpec, DataSpec,
                                           ExperimentSpec, ModelSpec,
                                           ObsConfig, RunSpec, from_dict,
@@ -19,6 +20,6 @@ from repro_torch.experiments.spec import (AlgoSpec, DataSpec,
 __all__ = ["AlgoSpec", "DataSpec", "ExperimentSpec", "ModelSpec",
            "ObsConfig", "Prepared", "RunResult", "RunSpec",
            "SCHEMA_VERSION", "build", "default_out", "describe_scenarios",
-           "from_dict", "get_scenario", "list_scenarios",
+           "from_dict", "get_scenario", "list_scenarios", "load_result",
            "override", "register_scenario", "run", "run_prepared", "sweep",
            "to_dict"]

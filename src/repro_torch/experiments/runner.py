@@ -27,13 +27,30 @@ keyed by (`comm.fault_seed`, round) alone (`comm.straggler.crash_draws`).
 caller may replace `Prepared.draw` to inject the reference's draws (and,
 for mesh runs, batches).
 
-Not ported yet (they raise NotImplementedError): the obs event stream,
-mesh checkpoints (`run.ckpt_dir`) and `sweep(jobs > 1)`.
+Observability (`run.obs.enabled`, repro_torch.obs): the run streams
+typed events to `<obs.dir>/<run_id>.jsonl` in the JAX package's schema:
+`run_start` with the full spec, one RoundEvent a round whose metrics are
+the very row dict appended to the record, `StageEvent`s (the pipeline
+stages and the runner's Step and Eval, all phase="host" with the round:
+the port runs every round eagerly), one KernelEvent a distinct kernel
+dispatch, and `run_end` with totals (status="error" when the run
+raises). With obs on, the Step span ends in a device sync, so it covers
+the round's device time; obs-off runs keep their async dispatch.
+`obs.profile_dir` writes a Chrome trace of `obs.profile_rounds` rounds
+from round index 1, past the warm-up (`obs.trace.RoundProfiler`).
+
+Mesh checkpoints (`run.ckpt_dir`): the global params after each round,
+saved after the round's row is built (so `step_time_s` excludes the
+save) by `checkpoint.CheckpointManager` (the newest three kept); the
+record gains `ckpt_steps`.
+
+Not ported yet (raises NotImplementedError): `sweep(jobs > 1)`.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import sys
 import time
 from pathlib import Path
 from typing import Any, Callable, NamedTuple, Optional
@@ -43,6 +60,7 @@ import torch
 
 from repro_torch.bridge import (transformer_params_from_numpy,
                                 tree_from_numpy)
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.comm.budget import (dense_bytes, downlink_config,
                                      host_round_bytes, payload_bytes)
 from repro_torch.configs.base import get_arch
@@ -59,11 +77,36 @@ from repro_torch.experiments.spec import ExperimentSpec, override, to_dict
 from repro_torch.kernels import runtime
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.transformer import Transformer
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.events import NULL, Emitter, new_run_id
+from repro_torch.obs.sinks import (CsvSink, FanoutSink, JsonlSink,
+                                   default_obs_dir)
 from repro_torch.pytree import tree_map
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts"
+# Artifact format version (the JAX package's): 1 = pre-obs {"spec",
+# "metrics"}; 2 adds top-level "schema" and "events" (the run's stream
+# path, null when obs was off)
 SCHEMA_VERSION = 2
 IMAGE_SPECS = {"mnist_like": MNIST_LIKE, "cifar_like": CIFAR_LIKE}
+
+
+def load_result(path: str | Path) -> dict:
+    """Load a run artifact, failing loudly on an unknown schema version
+    instead of letting a caller KeyError on a shape it was never written
+    for. Returns the raw dict with "schema" normalized (an artifact
+    without one is schema 1)."""
+    d = json.loads(Path(path).read_text())
+    schema = d.get("schema", 1)
+    if schema not in (1, 2):
+        raise ValueError(
+            f"{path}: artifact schema {schema!r} is newer than this "
+            f"reader (knows 1..{SCHEMA_VERSION}) — upgrade the repo or "
+            f"re-run the experiment")
+    if not isinstance(d.get("metrics"), dict):
+        raise ValueError(f"{path}: not a run artifact (no metrics dict)")
+    d["schema"] = schema
+    return d
 
 
 def _noniid2_groups(C: int) -> list[tuple[int, float]]:
@@ -107,7 +150,7 @@ class Prepared(NamedTuple):
 
 class RunResult(NamedTuple):
     """The spec, the metrics record (the JAX package's keys), the obs
-    stream path (None: obs is not ported) and the final engine state."""
+    stream path (None when obs was off) and the final engine state."""
     spec: ExperimentSpec
     record: dict
     events_path: Optional[str] = None
@@ -338,7 +381,21 @@ def _prepare_mesh(spec: ExperimentSpec, device: torch.device,
                          "params": params})
 
 
-def _run_mesh(prep: Prepared, verbose: bool) -> RunResult:
+def _round_window(profiler, t: int):
+    """The per-round profiler window (nullcontext when not profiling)."""
+    return (profiler.round(t) if profiler is not None
+            else contextlib.nullcontext())
+
+
+def _sync_for_obs(prep: Prepared, em) -> None:
+    """End of the Step span: with obs on, wait for the device so the span
+    covers the round's device time; obs-off runs keep async dispatch."""
+    if em.active and prep.device.type == "cuda":
+        torch.cuda.synchronize(prep.device)
+
+
+def _run_mesh(prep: Prepared, verbose: bool, em=NULL, tracer=None,
+              profiler=None) -> tuple[dict, Any]:
     """The round loop of a mesh run: the reference's record keys, plus
     the device's name and each round's kernel launches."""
     spec = prep.spec
@@ -346,6 +403,7 @@ def _run_mesh(prep: Prepared, verbose: bool) -> RunResult:
     comm = prep.aux["dcfg"].comm
     params = prep.aux["params"]
     dev = prep.device
+    mgr = CheckpointManager(r.ckpt_dir) if r.ckpt_dir else None
     record = {"arch": m.name, "reduced": m.reduced, "steps": r.rounds,
               "comm": comm._asdict(),
               "payload_bytes_per_worker": payload_bytes(comm, params),
@@ -359,23 +417,30 @@ def _run_mesh(prep: Prepared, verbose: bool) -> RunResult:
                          if dev.type == "cuda" else str(dev)),
               "launches": []}
     state = prep.state
-    with _full_f32():
-        for i in range(r.rounds):
-            state = _mesh_round(prep, state, i, record, verbose)
+    for i in range(r.rounds):
+        if tracer is not None:
+            tracer.round = i
+        state = _mesh_round(prep, state, i, record, verbose, em, profiler)
+        if mgr is not None:
+            mgr.save(i, state.global_params, metadata={"arch": m.name})
+    if mgr is not None:
+        record["ckpt_steps"] = mgr.all_steps()
     record["total_airtime_s"] = float(sum(record["airtime_s"]))
     record["total_energy_j"] = float(sum(record["energy_j"]))
-    return RunResult(spec=spec, record=record, state=state)
+    return record, state
 
 
 def _mesh_round(prep: Prepared, state, i: int, record: dict,
-                verbose: bool):
-    """One round of `_run_mesh`: appends its row to `record` and returns
-    the next state."""
+                verbose: bool, em=NULL, profiler=None):
+    """One round of `_run_mesh`: appends its row to `record` (and emits
+    it) and returns the next state."""
     m, r = prep.spec.model, prep.spec.run
     W = prep.spec.data.num_workers
     before = runtime.counts()
     t0 = time.perf_counter()
-    state, info = prep.step(state, prep.draw(state))
+    with _round_window(profiler, i), em.span("Step", round_idx=i):
+        state, info = prep.step(state, prep.draw(state))
+        _sync_for_obs(prep, em)
     gl = float(info.global_loss)                     # syncs the device
     transmitted = info.transmitted
     up, down = host_round_bytes(
@@ -402,11 +467,12 @@ def _mesh_round(prep: Prepared, state, i: int, record: dict,
                        if n != before.get(k, 0)}
     for k, v in row.items():
         record.setdefault(k, []).append(v)
+    em.round(i, row)
     if verbose:
-        print(f"[mesh/{m.name}] step {i + 1}/{r.rounds} "
-              f"global_loss={gl:.4f} selected={int(info.mask.sum())}/{W} "
-              f"air={row['airtime_s']:.3f}s e={row['energy_j']:.3f}J "
-              f"t={row['step_time_s']:.3f}s", flush=True)
+        em.log(f"[mesh/{m.name}] step {i + 1}/{r.rounds} "
+               f"global_loss={gl:.4f} selected={int(info.mask.sum())}/{W} "
+               f"air={row['airtime_s']:.3f}s e={row['energy_j']:.3f}J "
+               f"t={row['step_time_s']:.3f}s")
     return state
 
 
@@ -428,14 +494,7 @@ def build(spec: ExperimentSpec, device=None,
     inject the reference's arrays (numpy or tensors; a mesh run takes
     only `init_params`, the reference's transformer params)."""
     spec = spec.validate()
-    if spec.run.obs.enabled:
-        raise NotImplementedError("the obs event stream is not ported to "
-                                  "repro_torch yet")
     if spec.model.kind == "mesh":
-        if spec.run.ckpt_dir:
-            raise NotImplementedError("mesh checkpoints (run.ckpt_dir) "
-                                      "need checkpoint/npz, which is not "
-                                      "ported to repro_torch yet")
         return _prepare_mesh(spec, resolve_device(device), init_params)
     prep = _prepare_paper(spec, resolve_device(device), data, init_params)
     if spec.fleet.population:
@@ -457,10 +516,9 @@ def _full_f32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def run_prepared(prep: Prepared, verbose: bool = True) -> RunResult:
-    """The round loop over a built run (see `run`)."""
-    if prep.spec.model.kind == "mesh":
-        return _run_mesh(prep, verbose)
+def _run_paper(prep: Prepared, verbose: bool, em=NULL, tracer=None,
+               profiler=None) -> tuple[dict, Any]:
+    """The round loop of a paper run: the reference's record keys."""
     spec, comm = prep.spec, prep.spec.comm
     d, a, r = spec.data, spec.algo, spec.run
     state = prep.state
@@ -485,50 +543,58 @@ def run_prepared(prep: Prepared, verbose: bool = True) -> RunResult:
         record["cohort_size"] = d.num_workers
         record["cohort_policy"] = spec.fleet.cohort_policy
     metrics = None
-    with _full_f32():
-        for t in range(r.rounds):
-            t0 = time.perf_counter()
-            state, metrics = prep.step(state, prep.draw(state))
-            acc = test_accuracy(state.global_params)   # syncs the device
-            # under fault injection only the alive selected workers
-            # transmit: the byte accounting keys off that count
-            transmitted = metrics.transmitted
-            up, down = host_round_bytes(
-                comm, selected=(transmitted if transmitted is not None
-                                else metrics.selected_count),
-                bytes_up_jit=metrics.bytes_up,
-                payload_up=record["payload_bytes_per_worker"],
-                payload_down=record["downlink_bytes_per_worker"],
-                num_workers=d.num_workers)
-            row = {"acc": acc, "global_loss": float(metrics.global_loss),
-                   "selected": int(metrics.selected_count),
-                   "delivered": int(metrics.delivered_count),
-                   "uploaded_params": float(metrics.uploaded_params),
-                   "bytes_up": up, "bytes_down": down,
-                   "airtime_s": float(metrics.airtime_s),
-                   "energy_j": float(metrics.energy_j),
-                   "mean_snr_db": float(metrics.mean_snr_db),
-                   "round_time_s": time.perf_counter() - t0}
-            if transmitted is not None:
-                row["transmitted"] = int(transmitted)
-            row.update(_straggler_row(metrics, int))
-            if metrics.cohort is not None:
-                row["cohort"] = metrics.cohort.tolist()
-            for k, v in row.items():
-                record.setdefault(k, []).append(v)
-            if verbose and row.get("held"):
-                print(f"[straggler] round {t}: quorum hold — w_t frozen "
-                      f"(late={row.get('late', 0)} "
-                      f"buffered={row.get('buffered', 0)})", flush=True)
-            if verbose and (t % r.log_every == 0 or t == r.rounds - 1):
-                print(f"[{a.algorithm}/{d.case}/{d.dataset}] "
-                      f"round {t + 1}/{r.rounds} acc={acc:.3f} "
-                      f"loss={row['global_loss']:.4f} "
-                      f"selected={row['selected']}/{d.num_workers} "
-                      f"up={float(metrics.bytes_up) / 2**20:.2f}MiB "
-                      f"air={row['airtime_s']:.3f}s "
-                      f"e={row['energy_j']:.3f}J "
-                      f"t={row['round_time_s']:.3f}s", flush=True)
+    for t in range(r.rounds):
+        if tracer is not None:
+            tracer.round = t
+        t0 = time.perf_counter()
+        with _round_window(profiler, t):
+            with em.span("Step", round_idx=t):
+                state, metrics = prep.step(state, prep.draw(state))
+                _sync_for_obs(prep, em)
+            with em.span("Eval", round_idx=t):
+                acc = test_accuracy(state.global_params)   # syncs
+        # under fault injection only the alive selected workers
+        # transmit: the byte accounting keys off that count
+        transmitted = metrics.transmitted
+        up, down = host_round_bytes(
+            comm, selected=(transmitted if transmitted is not None
+                            else metrics.selected_count),
+            bytes_up_jit=metrics.bytes_up,
+            payload_up=record["payload_bytes_per_worker"],
+            payload_down=record["downlink_bytes_per_worker"],
+            num_workers=d.num_workers)
+        # one row dict feeds both the record and the event stream, so
+        # the stream's round metrics are bit-equal to the artifact
+        row = {"acc": acc, "global_loss": float(metrics.global_loss),
+               "selected": int(metrics.selected_count),
+               "delivered": int(metrics.delivered_count),
+               "uploaded_params": float(metrics.uploaded_params),
+               "bytes_up": up, "bytes_down": down,
+               "airtime_s": float(metrics.airtime_s),
+               "energy_j": float(metrics.energy_j),
+               "mean_snr_db": float(metrics.mean_snr_db),
+               "round_time_s": time.perf_counter() - t0}
+        if transmitted is not None:
+            row["transmitted"] = int(transmitted)
+        row.update(_straggler_row(metrics, int))
+        if metrics.cohort is not None:
+            row["cohort"] = metrics.cohort.tolist()
+        for k, v in row.items():
+            record.setdefault(k, []).append(v)
+        em.round(t, row)
+        if row.get("held"):
+            em.log(f"[straggler] round {t}: quorum hold — w_t frozen "
+                   f"(late={row.get('late', 0)} "
+                   f"buffered={row.get('buffered', 0)})", echo=verbose)
+        if verbose and (t % r.log_every == 0 or t == r.rounds - 1):
+            em.log(f"[{a.algorithm}/{d.case}/{d.dataset}] "
+                   f"round {t + 1}/{r.rounds} acc={acc:.3f} "
+                   f"loss={row['global_loss']:.4f} "
+                   f"selected={row['selected']}/{d.num_workers} "
+                   f"up={float(metrics.bytes_up) / 2**20:.2f}MiB "
+                   f"air={row['airtime_s']:.3f}s "
+                   f"e={row['energy_j']:.3f}J "
+                   f"t={row['round_time_s']:.3f}s")
     record["final_acc"] = record["acc"][-1]
     record["best_acc"] = max(record["acc"])
     record["total_uploaded_params"] = float(sum(record["uploaded_params"]))
@@ -540,7 +606,76 @@ def run_prepared(prep: Prepared, verbose: bool = True) -> RunResult:
         float(metrics.compression_ratio) if comm.adaptive_bits
         else record["dense_bytes_per_worker"]
         / record["payload_bytes_per_worker"])
-    return RunResult(spec=spec, record=record, state=state)
+    return record, state
+
+
+def _obs_emitter(spec: ExperimentSpec, engine: str):
+    """RunSpec.obs -> an emitter (NULL when disabled). The stream lands
+    under `obs.dir` (default artifacts/obs/) as <run_id>.jsonl, plus a
+    per-round CSV next to it when `obs.csv` is set."""
+    o = spec.run.obs
+    if not o.enabled:
+        return NULL
+    run_id = new_run_id(f"{spec.name or engine}__s{spec.run.seed}")
+    base = Path(o.dir) if o.dir else default_obs_dir()
+    sink = JsonlSink(base / f"{run_id}.jsonl")
+    if o.csv:
+        sink = FanoutSink(sink, CsvSink(base / f"{run_id}.csv"))
+    return Emitter(run_id, sink)
+
+
+def _run_totals(record: dict) -> dict:
+    """Cumulants for the RunEnd event, read off the finished record."""
+    totals = {}
+    for k in ("final_acc", "best_acc", "total_bytes_up",
+              "total_bytes_down", "total_airtime_s", "total_energy_j"):
+        if k in record:
+            totals[k] = record[k]
+    if "final_acc" not in totals and record.get("global_loss"):
+        totals["final_loss"] = record["global_loss"][-1]
+    return totals
+
+
+def run_prepared(prep: Prepared, verbose: bool = True) -> RunResult:
+    """The round loop over a built run (see `run`), with the obs stream,
+    stage tracer and profiler window when `run.obs` asks for them."""
+    spec = prep.spec
+    engine = "mesh" if spec.model.kind == "mesh" else "paper"
+    em = _obs_emitter(spec, engine)
+    tracer = profiler = None
+    if em.active:
+        o = spec.run.obs
+        em.run_start(scenario=spec.name, seed=spec.run.seed, engine=engine,
+                     num_workers=spec.data.num_workers,
+                     rounds=spec.run.rounds, n_params=prep.n_params,
+                     population=spec.fleet.population or 0,
+                     cohort=(spec.data.num_workers
+                             if spec.fleet.population else 0),
+                     spec=to_dict(spec))
+        cuda = prep.device.type == "cuda"
+        if o.stage_spans:
+            tracer = obs_trace.StageTracer(em, nvtx=cuda)
+        if o.profile_dir:
+            profiler = obs_trace.RoundProfiler(
+                o.profile_dir, em.run_id, start=min(1, spec.run.rounds - 1),
+                count=o.profile_rounds, emitter=em, cuda=cuda)
+    loop = _run_mesh if engine == "mesh" else _run_paper
+    try:
+        with obs_trace.activated(tracer), _full_f32():
+            record, state = loop(prep, verbose, em, tracer, profiler)
+    except BaseException:
+        if em.active:
+            if profiler is not None:
+                profiler.stop()
+            em.run_end(rounds=0, status="error")
+            em.close()
+        raise
+    if profiler is not None:
+        profiler.stop()
+    em.run_end(rounds=spec.run.rounds, totals=_run_totals(record))
+    em.close()
+    return RunResult(spec=spec, record=record, events_path=em.path,
+                     state=state)
 
 
 def run(spec: ExperimentSpec, verbose: bool = True,
@@ -560,21 +695,65 @@ def default_out(spec: ExperimentSpec) -> Path:
     return ARTIFACTS / "experiments" / f"{name}__s{spec.run.seed}__torch.json"
 
 
+def _cell_name(spec: ExperimentSpec) -> str:
+    return spec.name or f"{spec.algo.algorithm}/{spec.data.case}"
+
+
+def _final(record: dict) -> float:
+    """A cell's headline metric: final accuracy, or the last loss."""
+    return record.get("final_acc", record["global_loss"][-1])
+
+
 def sweep(specs, seeds=(0,), out_dir: str | Path | None = None,
           verbose: bool = False, jobs: int = 1,
           device=None) -> list[RunResult]:
-    """Scenarios x seeds, one artifact each (serial only)."""
+    """Scenarios x seeds, one artifact each, run one after another. Any
+    `run.out` on the input specs is cleared: per-(scenario, seed) naming
+    wins. With obs on (the first cell's `run.obs`), a sweep-level stream
+    `sweep__<name>__...jsonl` beside the cells' own gets one SweepEvent a
+    finished cell and a closing run_end. Unless `verbose`, each cell
+    prints `[sweep] <cell> s<seed>: <final> wall=<s>s -> <artifact>`
+    (plus `events=<stream>` with obs on) to stderr."""
     if jobs > 1:
         raise NotImplementedError("sweep(jobs > 1) is not ported to "
                                   "repro_torch yet")
-    results = []
+    cells: list[tuple[ExperimentSpec, Path]] = []
     for spec in specs:
         for seed in seeds:
             s = override(spec, f"run.seed={seed}", "run.out=none")
             path = default_out(s)
             if out_dir is not None:
                 path = Path(out_dir) / path.name
+            cells.append((s, path))
+
+    sem = NULL
+    if cells and cells[0][0].run.obs.enabled:
+        first = cells[0][0]
+        base = (Path(first.run.obs.dir) if first.run.obs.dir
+                else default_obs_dir())
+        rid = new_run_id(f"sweep__{first.name or 'grid'}")
+        sem = Emitter(rid, JsonlSink(base / f"{rid}.jsonl"))
+
+    results: list[RunResult] = []
+    try:
+        for s, path in cells:
+            t0 = time.time()
             res = run(s, verbose=verbose, device=device)
             res.save(path)
+            wall_s = time.time() - t0
+            sem.sweep_cell(_cell_name(s), seed=s.run.seed,
+                           final=_final(res.record), wall_s=round(wall_s, 3),
+                           artifact=str(path), events=res.events_path)
+            if not verbose:
+                ev = f" events={res.events_path}" if res.events_path else ""
+                print(f"[sweep] {_cell_name(s)} s{s.run.seed}: "
+                      f"{_final(res.record):.4f} wall={wall_s:.1f}s -> "
+                      f"{path}{ev}", file=sys.stderr, flush=True)
             results.append(res)
-    return results
+        return results
+    finally:
+        if sem.active:
+            sem.run_end(rounds=len(results),
+                        status="ok" if len(results) == len(cells)
+                        else "error")
+            sem.close()

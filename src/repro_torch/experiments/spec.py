@@ -107,14 +107,14 @@ class PopulationSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:
-    """The telemetry bus (repro.obs; not ported yet). Disabled by default: a disabled
-    run pays only no-op emitter calls and stays bit-identical to the
-    pre-obs goldens."""
+    """The telemetry bus (repro_torch.obs). Disabled by default: a
+    disabled run pays only no-op emitter calls, and an enabled one's
+    record is bit-identical to a disabled one's, apart from its times."""
     enabled: bool = False
     dir: Optional[str] = None            # stream dir (None = artifacts/obs)
     csv: bool = False                    # also write per-round CSV rows
-    stage_spans: bool = True             # trace RoundPipeline stages
-    profile_dir: Optional[str] = None    # profiler trace output dir
+    stage_spans: bool = True             # time the pipeline stages
+    profile_dir: Optional[str] = None    # Chrome trace output dir
     profile_rounds: int = 3              # rounds captured per trace window
 
 

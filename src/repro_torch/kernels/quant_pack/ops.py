@@ -8,7 +8,8 @@ workers of a leaf in one launch (grid over block x worker), where the
 JAX package vmaps a per-worker call. The downlink passes C = 1.
 
 Dispatch is by the device of the input: CPU tensors take the plain
-versions in ref.py, CUDA tensors launch the kernel (or raise).
+versions in ref.py, CUDA tensors launch the kernel (or raise). Each
+2D wrapper reports its dispatch to the obs bus (`runtime.note_dispatch`).
 
 The quantize-pack launch is `_plan`'s: each (256, 128) tile and worker
 is split over a cluster of 8 CTAs, each owning 32 of the tile's rows
@@ -131,7 +132,9 @@ def quant_pack_2d(x: torch.Tensor, seeds: torch.Tensor, *, bits: int = 8
     """Quantize + pack on (C, rows, 128) f32 with (C,) int32 seeds.
     Returns packed (C, rows, 128) int8 / (C, rows/2, 128) uint8 and
     scales (C, rows/256) f32."""
-    if _is_cpu(x):
+    cpu = _is_cpu(x)
+    runtime.note_dispatch("quant_pack", cpu, bits=bits)
+    if cpu:
         return quant_pack_ref(x, seeds, bits=bits)
     packed, scales, _ = _launch_quant_pack(x, None, seeds, bits,
                                            "quant_pack")
@@ -143,7 +146,9 @@ def quant_pack_ef_2d(x: torch.Tensor, residual: torch.Tensor,
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused uplink pass on (C, rows, 128): quantize + pack x + residual
     and return the new error-feedback residual in the same pass."""
-    if _is_cpu(x):
+    cpu = _is_cpu(x)
+    runtime.note_dispatch("quant_pack_ef", cpu, bits=bits)
+    if cpu:
         return quant_pack_ef_ref(x, residual, seeds, bits=bits)
     return _launch_quant_pack(x, residual, seeds, bits, "quant_pack_ef")
 
@@ -152,7 +157,9 @@ def dequant_unpack_2d(packed: torch.Tensor, scales: torch.Tensor, *,
                       bits: int = 8) -> torch.Tensor:
     """Decode packed (C, rows[/2], 128) + scales (C, nb) -> (C, rows,
     128) f32."""
-    if _is_cpu(packed):
+    cpu = _is_cpu(packed)
+    runtime.note_dispatch("dequant_unpack", cpu, bits=bits)
+    if cpu:
         return dequant_unpack_ref(packed, scales, bits=bits)
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")

@@ -1,5 +1,6 @@
-"""Kernel runtime: device resolution, per-kernel launch counters, and the
-nvcc build + ctypes loader for the hand-written CUDA kernels.
+"""Kernel runtime: device resolution, per-kernel launch counters, the obs
+dispatch hook, and the nvcc build + ctypes loader for the hand-written
+CUDA kernels.
 
 Dispatch rule (every `ops.py` wrapper): the device of the tensor picks
 the implementation. A CPU tensor takes the plain PyTorch version in the
@@ -31,6 +32,9 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+# the wrappers' KernelEvent hook, re-exported beside note_launch
+from repro_torch.obs.trace import note_dispatch  # noqa: F401
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

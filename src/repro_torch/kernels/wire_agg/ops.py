@@ -115,7 +115,10 @@ def wire_agg_2d(packed: torch.Tensor, scales: torch.Tensor,
     nb) f32, mask and weights (C,) f32 -> (rows, 128) f32."""
     if aggregator not in TREE_MODES:
         raise ValueError(f"unknown aggregator {aggregator!r}")
-    if packed.device.type == "cpu":
+    cpu = packed.device.type == "cpu"
+    runtime.note_dispatch("wire_agg", cpu, bits=bits, aggregator=aggregator,
+                          workers=packed.shape[0])
+    if cpu:
         return wire_agg_ref(packed, scales, mask, weights, bits=bits,
                             aggregator=aggregator, trim_ratio=trim_ratio)
     if packed.device.type != "cuda":

@@ -56,6 +56,21 @@ def tree_unflatten(treedef, leaves) -> PyTree:
     return tuple(out) if kind == "tuple" else out
 
 
+def tree_leaves_with_path(tree: PyTree, prefix: tuple = ()) -> list:
+    """[(path, leaf)] in tree_flatten's order; a path is the tuple of the
+    leaf's keys as strings: a dict's key, a NamedTuple's field name, a
+    list or tuple index (jax.tree_util's DictKey, GetAttrKey and
+    SequenceKey)."""
+    kids, meta = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    kind, info = meta
+    names = (info if kind == "dict" else info._fields
+             if kind == "namedtuple" else range(len(kids)))
+    return [pl for n, k in zip(names, kids)
+            for pl in tree_leaves_with_path(k, prefix + (str(n),))]
+
+
 def tree_leaves(tree: PyTree) -> list:
     return tree_flatten(tree)[0]
 

@@ -350,12 +350,26 @@ def test_build_without_device_raises(monkeypatch):
         build(override(get_scenario("mesh/smollm-smoke"), "run.rounds=1"))
 
 
-def test_ckpt_dir_and_obs_raise(tmp_path):
-    base = override(get_scenario("mesh/smollm-smoke"), "run.rounds=1")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        build(override(base, f"run.ckpt_dir={tmp_path}"), device="cpu")
-    with pytest.raises(NotImplementedError, match="obs"):
-        build(override(base, "run.obs.enabled=true"), device="cpu")
+def test_ckpt_dir_with_obs_on_the_mesh_engine(tmp_path):
+    """What chip_smoke.py's checkpoint phase runs, reduced: two rounds
+    with run.ckpt_dir and the obs stream, the latest checkpoint restoring
+    bitwise into the live params, the stream ending in the final loss."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.obs import read_events
+    spec = override(get_scenario("mesh/smollm-smoke"), "run.rounds=2",
+                    "model.seq_len=16", f"run.ckpt_dir={tmp_path / 'ck'}",
+                    "run.obs.enabled=true", f"run.obs.dir={tmp_path}")
+    res = run_prepared(build(spec, device="cpu"), verbose=False)
+    assert res.record["ckpt_steps"] == [0, 1]
+    live = res.state.global_params
+    step, back = CheckpointManager(tmp_path / "ck").restore(like=live)
+    assert step == 1
+    assert all(torch.equal(a, b) and a.dtype == b.dtype
+               for a, b in zip(tree_leaves(back), tree_leaves(live)))
+    evs = read_events(res.events_path)
+    assert [e.round for e in evs if e.kind == "round"] == [0, 1]
+    assert evs[-1].kind == "run_end" and evs[-1].status == "ok"
+    assert evs[-1].totals["final_loss"] == res.record["global_loss"][-1]
 
 
 def test_set_cli_runs_on_cpu(tmp_path):
