@@ -150,16 +150,46 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      a template of the live params on the card bitwise equal to them;
      prints the checkpoint's size, one more save's time (device to host,
      savez, rename) and the restore's, and removes the directory;
- 19. prints the card line, the `kernels` JSON line (each row with its
+ 19. F2, one record per seed: `low-bandwidth-int4` at full width (3
+     rounds) twice more and the int4 `straggler/deadline-tight` run
+     twice, bit for bit equal in every recorded loss, accuracy and count
+     (the first also with phase 5's record); round times beside phase
+     5's;
+ 20. the sweep: `python -m repro_torch.launch.train --sweep
+     paper/fig3-iid,paper/fig3-noniid1,paper/fig3-noniid2 --sweep-axis
+     algo.algorithm=fedavg,dsl,multi_dsl,mdsl --jobs 2 --set
+     run.rounds=3` (12 cells at full width, C = 50, CNN5 w8, over 2
+     spawned processes on the card); three cells' records equal, bit
+     for bit apart from the round times, the same cells run with jobs = 1
+     in this process, with the same launches; each cell's wall time and
+     launches (the child's own) and the grid's wall time;
+ 21. per-step Eq. 8: `low-bandwidth-int4` with `algo.pso_every_step=true`
+     at full width for 2 rounds, counts reset just before and read just
+     after: pso_update launches (512 / 64) x 4 steps x 10 leaves = 320
+     times a round, the wire kernels 10 times a round each; one step's
+     kernel route (`core/pso.pso_step`) against the plain per-step
+     formula on the same stacked leaves, bitwise in f32, and pso_update
+     timed at the largest of them (device, eager, plain, bound), its
+     launches cycling through 4 copies of the inputs so that the 50 MB
+     L2 cannot hold them from one launch to the next;
+ 22. the figure drivers through their CLIs: `fig3_accuracy --quick --jobs
+     2`, `fig1_metric --quick`, `comm_efficiency --quick --json` and
+     `population_bench --quick --json` (P up to 10^6); each record has
+     the reference's keys (the --json ones those of the root
+     BENCH_stragglers.json and BENCH_population.json); headline rows and
+     wall times, and the seconds of phases 19-22;
+ 23. prints the card line, the `kernels` JSON line (each row with its
      share of bound = bound_ms / ms; each kernel's first row with its
      launches in the int4 straggler run, the int4 population run, the
-     mesh straggler run, the obs run and the mesh checkpoint run; each
+     mesh straggler run, the obs run, the mesh checkpoint run, the
+     sweep's cells (phase 20) and the per-step Eq.-8 run; each
      flash row with its cores,
      the CUDA-core kernel's and the f32 path's times; a row of the
      forward at the mesh shape, rows of quant_pack_ef, wire_agg and
      dequant_unpack at the large leaf, of quant_pack and dequant_unpack
      at the straggler uplink's int4 C = 50, of the forward and backward
-     at hd 80 and of the backward at hd 256) and, last, the ok line.
+     at hd 80, of the backward at hd 256 and of pso_update at the
+     per-step Eq. 8's CNN5 leaf) and, last, the ok line.
 
 Tolerances: payloads, scales, decodes and the wire_agg median bitwise;
 the obs stream's round rows and the restored checkpoint bitwise;
@@ -178,8 +208,10 @@ within 2 bf16 ulps of `attention_bwd_ref` (the ulp taken at no less than
 |gradient| against autograd of `attention_ref` (which forms
 rowsum(dO * O) from the f32 output, the kernel from the bf16 one). The
 small mesh rounds: losses within 5e-6, params and velocities within
-2e-7, masks equal (as the CPU parity tests). Every timing line of phases
-13-18 carries the card's name and power limit.
+2e-7, masks equal (as the CPU parity tests). The repeated paper runs
+(phase 19), the sweep's cells against their jobs = 1 runs (phase 20) and
+the per-step Eq. 8 (phase 21): bitwise. Every timing line of phases
+13-22 carries the card's name and power limit.
 """
 import json
 import math
@@ -2258,6 +2290,327 @@ def mesh_checkpoint_path(card: str) -> dict:
     return counts
 
 
+# the round columns a paper record must repeat bit for bit (F2)
+REPEAT_KEYS = ("acc", "global_loss", "selected", "delivered", "late",
+               "drained", "buffered", "held", "uploaded_params", "bytes_up",
+               "bytes_down", "airtime_s", "energy_j", "mean_snr_db")
+
+
+def determinism_path(card: str, main_rec: dict) -> None:
+    """Phase 19 (F2): `low-bandwidth-int4` at full width (ROUNDS rounds)
+    twice more and the int4 `straggler/deadline-tight` run twice in this
+    process: every recorded loss, accuracy and count bit for bit equal,
+    the first with phase 5's record too. Prints the round times beside
+    phase 5's."""
+    import torch
+    from repro_torch.experiments import get_scenario, override, run
+
+    specs = {"low-bandwidth-int4": override(
+                 get_scenario("low-bandwidth-int4"), f"run.rounds={ROUNDS}"),
+             "straggler int4": override(
+                 get_scenario("straggler/deadline-tight"),
+                 f"run.rounds={ROUNDS}", *INT4_WIRE)}
+    for label, spec in specs.items():
+        recs = [run(spec, verbose=False).record for _ in range(2)]
+        torch.cuda.synchronize()
+        if label == "low-bandwidth-int4":
+            recs.insert(0, main_rec)
+        for k in REPEAT_KEYS:
+            vals = [r.get(k) for r in recs]
+            check(all(v == vals[0] for v in vals[1:]),
+                  f"F2: {label} runs differ in {k}: {vals}")
+        times = "; ".join(f"{[round(t, 4) for t in r['round_time_s']]}"
+                          for r in recs)
+        print(f"[F2] {label}: {len(recs)} runs equal bit for bit in "
+              f"{', '.join(REPEAT_KEYS)}; loss {recs[0]['global_loss']}, "
+              f"selected {recs[0]['selected']}, delivered "
+              f"{recs[0]['delivered']}, late {recs[0].get('late')}; "
+              f"s/round {times}"
+              + (" (the first is phase 5's)" if len(recs) == 3 else "")
+              + f" ({card})", flush=True)
+
+
+SWEEP_ARGV = ["--sweep", "paper/fig3-iid,paper/fig3-noniid1,paper/fig3-noniid2",
+              "--sweep-axis", "algo.algorithm=fedavg,dsl,multi_dsl,mdsl",
+              "--jobs", "2", "--set", f"run.rounds={ROUNDS}"]
+SWEEP_CHECKED = (0, 7, 11)       # fedavg/iid, mdsl/noniid1, mdsl/noniid2
+L2_COPIES = 4                    # 4 x 30 MB: past the H100's 50 MB L2
+
+
+def sweep_path(card: str) -> dict:
+    """Phase 20: the paper's Fig.-3 grid through the CLI, `python -m
+    repro_torch.launch.train --sweep ... --jobs 2` (3 cases x 4
+    algorithms at full width, C = 50, CNN5 w8, ROUNDS rounds: 12 cells
+    over 2 spawned processes on the card). Every cell's artifact has
+    finite losses; the checked cells' records equal, bit for bit apart
+    from the round times, the same cell run with jobs = 1 here, with the
+    same launches. Prints each cell's line (wall and launches, the
+    child's own) and the grid's wall time; returns the grid's launches."""
+    import ast
+    import os
+    import re
+    import tempfile
+    from repro_torch.experiments import sweep
+    from repro_torch.experiments.runner import load_result, sweep_cells
+    from repro_torch.launch.train import build_sweep_specs, parser
+
+    specs = build_sweep_specs(parser().parse_args(SWEEP_ARGV))
+    cells = sweep_cells(specs)
+    for _, path in cells:
+        path.unlink(missing_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT / "src"), env.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                           *SWEEP_ARGV], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stderr.splitlines()
+             if ln.startswith("[sweep]")]
+    for ln in lines:
+        print(f"{ln} ({card})", flush=True)
+    check(proc.returncode == 0, f"sweep CLI failed ({proc.returncode}):\n"
+                                f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    check(len(lines) == len(cells) == 12,
+          f"sweep: {len(lines)} cell lines for {len(cells)} cells")
+    launches = [ast.literal_eval(re.search(r"launches=(\{.*?\})", ln)
+                                 .group(1)) for ln in lines]
+    print(f"[sweep] grid of {len(cells)} cells (3 cases x 4 algorithms, "
+          f"C=50, cnn5 w8, {ROUNDS} rounds) over 2 spawned processes: "
+          f"{wall:.1f} s wall for the CLI call, process start included; "
+          f"{proc.stdout.strip()} ({card})", flush=True)
+    recs = [load_result(path)["metrics"] for _, path in cells]
+    check(all(math.isfinite(v) for r in recs for v in r["global_loss"]),
+          "sweep: a cell's loss is not finite")
+    drop = ("round_time_s",)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for i in SWEEP_CHECKED:
+            spec, _ = cells[i]
+            t1 = time.perf_counter()
+            res = sweep([spec], out_dir=tmp)[0]
+            one = time.perf_counter() - t1
+            mine = json.loads(json.dumps(res.record))
+            theirs = recs[i]
+            same = ({k: v for k, v in mine.items() if k not in drop}
+                    == {k: v for k, v in theirs.items() if k not in drop})
+            check(same, f"sweep: cell {i} ({spec.algo.algorithm}/"
+                        f"{spec.data.case}) differs from its jobs = 1 run")
+            print(f"[sweep] cell {i} {spec.algo.algorithm}/{spec.data.case}:"
+                  f" the jobs=2 record equals the jobs=1 run here bit for "
+                  f"bit (final acc {theirs['final_acc']}, loss "
+                  f"{theirs['global_loss']}, selected {theirs['selected']});"
+                  f" jobs=1 cell {one:.2f} s ({card})", flush=True)
+    total = {}
+    for la in launches:
+        for k, n in la.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def pso_every_step_path(card: str) -> dict:
+    """Phase 21: `low-bandwidth-int4` at full width with
+    `algo.pso_every_step=true` for 2 rounds, counts reset just before
+    and read just after: pso_update launches (n_local / bs) x E steps x
+    10 leaves a round, the wire kernels as in phase 5. Then the kernel
+    route of one step (`pso.pso_step` on the run's final worker state,
+    the global best and seeded gradients) against the plain per-step
+    formula on the same stacked leaves, bitwise in f32, and pso_update's
+    times at the largest of them (fc1/w, C = 50 x 784 x 32). Returns the
+    run's counts and that leaf's timing row."""
+    import torch
+    from repro_torch.core import pso
+    from repro_torch.experiments import get_scenario, override, run
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.pso_update import ops as pops
+    from repro_torch.kernels.pso_update import ref as pref
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    rounds = 2
+    spec = override(get_scenario("low-bandwidth-int4"),
+                    f"run.rounds={rounds}", "algo.pso_every_step=true")
+    a, d = spec.algo, spec.data
+    steps = (d.n_local // a.batch_size) * a.local_epochs
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    result = run(spec, verbose=False)
+    torch.cuda.synchronize()
+    counts = runtime.counts()
+    wall = time.perf_counter() - t0
+    rec = result.record
+    want = dict({k: rounds * LEAVES for k in MAIN_BITS},
+                pso_update=steps * LEAVES * rounds)
+    check(counts == want, f"per-step Eq. 8 launched {counts}, expected "
+                          f"{want}")
+    check(all(math.isfinite(v) for v in rec["global_loss"]),
+          "per-step Eq. 8: loss not finite")
+    print(f"[eq8-step] {rounds} rounds of low-bandwidth-int4 with "
+          f"pso_every_step ({steps} steps x {LEAVES} leaves a round): "
+          f"s/round {[round(t, 4) for t in rec['round_time_s']]}, loss "
+          f"{rec['global_loss']}, acc {rec['acc']}, selected "
+          f"{rec['selected']}; {wall:.2f} s incl. setup; launches {counts} "
+          f"({card})", flush=True)
+
+    st = result.state
+    w = st.workers
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    grads = tree_map(lambda x: torch.randn(x.shape, generator=gen,
+                                           device=x.device), w.params)
+    C = d.num_workers
+    draw = pso.sample_coefficients(gen, C, "cuda")
+    co = pso.coefficients(draw)
+    lr, clip = a.hp.learning_rate, a.hp.velocity_clip
+    got = pso.pso_step(w, st.gbest.params, grads, co, lr, a.hp)
+    worst = 0
+    for gw, gv, x, v, wl, wg, g in zip(
+            tree_leaves(got.params), tree_leaves(got.velocity),
+            *(tree_leaves(t) for t in (w.params, w.velocity, w.best_params,
+                                       st.gbest.params, grads))):
+        b = lambda c: c.reshape((-1,) + (1,) * (x.ndim - 1))  # noqa: E731
+        pv = (b(co.c0) * v + b(co.c1) * (wl - x) + b(co.c2) * (wg - x)
+              - lr * g)
+        if clip > 0:
+            pv = pv.clamp(-clip, clip)
+        pw = x + pv
+        check(torch.equal(gv, pv) and torch.equal(gw, pw),
+              f"per-step Eq. 8: kernel differs from the plain formula on a "
+              f"{tuple(x.shape)} leaf")
+        worst = max(worst, float((gw - pw).abs().max()))
+    print(f"[eq8-step] one step of {len(tree_leaves(w.params))} stacked "
+          f"leaves (C={C}) through pso_update equals the plain per-step "
+          f"formula bit for bit (max |diff| {worst}) ({card})", flush=True)
+
+    x, v, wl, wg, g = max(
+        zip(*(tree_leaves(t) for t in (w.params, w.velocity, w.best_params,
+                                       st.gbest.params, grads))),
+        key=lambda leaf: leaf[0].numel())
+    co = torch.stack([co.c0, co.c1, co.c2, torch.full_like(co.c0, clip)],
+                     dim=1).contiguous()
+    args = tuple(t.contiguous() for t in (x, v, wl, wg, -lr * g))
+    n = wg.numel()
+    nbytes = 4 * (6 * C * n + n) + 16 * C
+    bnd, by = bound_ms(nbytes, 8 * C * n)
+    # one launch moves 30 MB, which the card's 50 MB L2 would keep
+    # between repeats: the timed launches cycle through L2_COPIES copies
+    # of the inputs, so each reads them from device memory as the step
+    # loop's launches, a leaf apart, mostly do
+    sets = [args] + [tuple(t.clone() for t in args)
+                     for _ in range(L2_COPIES - 1)]
+    turn = iter(range(1 << 30))
+
+    def launch(fn):
+        return lambda: fn(co, *sets[next(turn) % L2_COPIES])
+
+    row = {"max_abs_err": worst, "library_ms": None, "bound_ms": bnd,
+           "bound_by": by,
+           "ms": graph_ms(launch(pops.pso_update), 4 * L2_COPIES),
+           "eager_ms": time_ms(launch(pops.pso_update), 4 * L2_COPIES),
+           "plain_ms": time_ms(launch(pref.pso_update_ref), L2_COPIES)}
+    print(f"[time] pso_update per-step Eq. 8 (C={C}, leaf "
+          f"{tuple(x.shape[1:])}, f32, {L2_COPIES} copies of the inputs in "
+          f"turn): device {row['ms']:.4f} ms/launch, eager call "
+          f"{row['eager_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"library none, bound {bnd:.4g} ms ({by}, {nbytes} B) ({card})",
+          flush=True)
+    del sets
+    return counts, row
+
+
+BENCH_KEYS = {
+    "fig3_accuracy": {"results", "claims", "rounds", "dataset", "quick"},
+    "fig1_metric": {"alphas", "label_ratio", "wd", "fedavg_acc", "eta",
+                    "coeffs", "r2_train", "r2_test", "gaps", "dataset"},
+    "comm_efficiency": {"n_params", "C", "rounds", "target_acc",
+                        "aggregator", "downlink_compressor",
+                        "adaptive_bits", "ref_algorithm", "ref_dense_bytes",
+                        "fedavg_dense_bytes", "mdsl_dense_bytes",
+                        "selection_saving_frac", "fedavg_total_uploads",
+                        "mdsl_total_uploads", "saving_frac",
+                        "mdsl_selected_trace", "fedavg_acc", "mdsl_acc",
+                        "sweep", "phy_sweep", "byzantine_sweep",
+                        "straggler_sweep"},
+}
+
+
+def figure_drivers(card: str) -> None:
+    """Phase 22: the paper's figure drivers on the card through their
+    CLIs: `fig3_accuracy --quick --jobs 2` (12 cells through the sweep),
+    `fig1_metric --quick`, `comm_efficiency --quick --json` (with the
+    straggler sweep) and `population_bench --quick --json` (P up to
+    10^6). Each record has the reference's keys (the two --json records
+    those of the root BENCH_stragglers.json and BENCH_population.json);
+    prints each one's headline rows and wall time."""
+    import contextlib
+    import io
+    from repro_torch.figures import (comm_efficiency, fig1_metric,
+                                     fig3_accuracy, population_bench)
+    from repro_torch.figures.common import ARTIFACTS, BENCH_OUT
+
+    def drive(mod, argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            mod.main(argv)
+        return time.perf_counter() - t0, out.getvalue()
+
+    wall, _ = drive(fig3_accuracy, ["--quick", "--jobs", "2"])
+    rec = json.loads((BENCH_OUT / "fig3_accuracy__torch.json").read_text())
+    check(set(rec) == BENCH_KEYS["fig3_accuracy"]
+          and len(rec["results"]) == 12, f"fig3: record keys {sorted(rec)}")
+    print(f"[fig3] quick, 12 cells over 2 processes in {wall:.1f} s: final "
+          f"acc " + ", ".join(f"{k} {v['final_acc']:.3f}"
+                              for k, v in rec["results"].items())
+          + f"; claims {rec['claims']} ({card})", flush=True)
+
+    wall, _ = drive(fig1_metric, ["--quick"])
+    rec = json.loads((BENCH_OUT / "fig1_metric__torch.json").read_text())
+    check(set(rec) == BENCH_KEYS["fig1_metric"]
+          and all(math.isfinite(v) for v in rec["fedavg_acc"]),
+          f"fig1: record {sorted(rec)}")
+    print(f"[fig1] quick in {wall:.1f} s: alphas {rec['alphas']}, FedAvg "
+          f"acc {[round(v, 4) for v in rec['fedavg_acc']]}, eta "
+          f"{[round(v, 3) for v in rec['eta']]}; Eq. 2 fit "
+          f"{[round(v, 4) for v in rec['coeffs']]}, R2 train "
+          f"{rec['r2_train']:.3f} test {rec['r2_test']}; gaps "
+          f"{rec['gaps']} ({card})", flush=True)
+
+    wall, _ = drive(comm_efficiency, ["--quick", "--json"])
+    rec = json.loads((BENCH_OUT / "comm_efficiency__torch.json").read_text())
+    check(set(rec) == BENCH_KEYS["comm_efficiency"],
+          f"comm_efficiency: record keys {sorted(rec)}")
+    srec = json.loads((ARTIFACTS / "BENCH_stragglers__torch.json")
+                      .read_text())
+    want = json.loads((ROOT / "BENCH_stragglers.json").read_text())
+    check(set(srec) == set(want) and set(srec["runs"]) == set(want["runs"])
+          and all(set(srec["runs"][k]) == set(want["runs"][k])
+                  for k in want["runs"]),
+          "comm_efficiency --json: keys differ from BENCH_stragglers.json")
+    print(f"[comm] quick --json in {wall:.1f} s: selection saving "
+          f"{rec['selection_saving_frac']:.3f}, final acc " + ", ".join(
+              f"{k} {v['final_acc']:.3f}" for k, v in rec["sweep"].items())
+          + "; stragglers " + ", ".join(
+              f"{k} {v['final_acc']:.3f} late {sum(v['late'] or [0])}"
+              for k, v in srec["runs"].items()) + f" ({card})", flush=True)
+
+    wall, _ = drive(population_bench, ["--quick", "--json"])
+    rec = json.loads((ARTIFACTS / "BENCH_population__torch.json")
+                     .read_text())
+    want = json.loads((ROOT / "BENCH_population.json").read_text())
+    check(set(rec) == set(want) and len(rec["rows"]) == len(want["rows"])
+          and all(set(r) == set(w) for r, w in zip(rec["rows"],
+                                                  want["rows"]))
+          and [r["population"] for r in rec["rows"]]
+          == [1_000, 100_000, 1_000_000],
+          "population_bench --json: keys differ from BENCH_population.json")
+    for r in rec["rows"]:
+        print(f"[population] P={r['population']} K={r['cohort']}: round "
+              f"{r['round_s']} s (first {r['round0_s']}), schedule "
+              f"{r['schedule_s']} s, scatter {r['scatter_s']} s, table "
+              f"{r['table_mb']} MB, build {r['build_s']} s ({card})",
+              flush=True)
+    print(f"[population] quick --json in {wall:.1f} s ({card})", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2340,6 +2693,13 @@ def main() -> None:
     mesh_straggler_counts = mesh_straggler_path(card)
     obs_counts = obs_path(card, rec, counts)
     ckpt_counts = mesh_checkpoint_path(card)
+    t0 = time.perf_counter()
+    determinism_path(card, rec)
+    sweep_counts = sweep_path(card)
+    step_counts, step_row = pso_every_step_path(card)
+    figure_drivers(card)
+    print(f"[time] phases 19-22 (F2, the sweep, per-step Eq. 8, the figure "
+          f"drivers): {time.perf_counter() - t0:.1f} s ({card})", flush=True)
 
     src = {"quant_pack_ef": ("quant_pack",
                              "src/repro/kernels/quant_pack/quant_pack.py:172"),
@@ -2458,6 +2818,8 @@ def main() -> None:
                 k["name"], 0)
             k["launches_obs"] = obs_counts.get(k["name"], 0)
             k["launches_mesh_ckpt"] = ckpt_counts.get(k["name"], 0)
+            k["launches_sweep"] = sweep_counts.get(k["name"], 0)
+            k["launches_pso_every_step"] = step_counts.get(k["name"], 0)
     for name in ("quant_pack", "dequant_unpack"):
         row = {key: v for key, v in next(
             k for k in kernels if k["name"] == name).items()
@@ -2471,6 +2833,14 @@ def main() -> None:
             **{key: dense50[name][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "eager_ms")}))
+    # this slice: pso_update at its paper-path shape (per-step Eq. 8)
+    pso = next(k for k in kernels if k["name"] == "pso_update")
+    kernels.append(dict(
+        {key: v for key, v in pso.items()
+         if not key.startswith("launches_")},
+        name="pso_update (per-step Eq. 8, CNN5 fc1 leaf)",
+        shape="f32, C=50 x (784, 32); 10 leaves a step, 32 steps a round",
+        launches=step_counts["pso_update"], **step_row))
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(card, flush=True)

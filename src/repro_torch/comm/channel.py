@@ -73,6 +73,14 @@ def noise_shapes(cfg: CommConfig, params: PyTree,
             for x in tree_flatten(params)[0]]
 
 
+def erasure_mask(cfg: CommConfig, mask: torch.Tensor,
+                 keep: Optional[torch.Tensor],
+                 snr_db: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Post-channel survivor mask (compat shim over phy.delivery_mask:
+    packet erasure, the injected keep draw, composed with SNR outage)."""
+    return comm_phy.delivery_mask(cfg, mask, keep, snr_db=snr_db)
+
+
 def receive(cfg: CommConfig, global_params: PyTree, wire_deltas: PyTree,
             mask: torch.Tensor, keep: Optional[torch.Tensor] = None,
             noise: Optional[Sequence[torch.Tensor]] = None,

@@ -8,8 +8,11 @@ over stacked workers.
 
 LocalUpdate runs E epochs of minibatch SGD for all C workers at once
 (`torch.func.vmap` of `torch.func.grad` over the stacked params) and
-adds the Eq.-8 PSO terms once per round; ScoreSelect, the wire and the
-accounting are `core/rounds.py`'s stages. F_{i,t} for bests and
+adds the Eq.-8 PSO terms once per round; with `pso_every_step` it
+applies Eq. 8 after every minibatch step instead (`pso.pso_step`: the
+fused `pso_update` kernel, one launch a leaf a step), as the reference's
+mode of the same name does. ScoreSelect, the wire and the accounting are
+`core/rounds.py`'s stages. F_{i,t} for bests and
 selection is evaluated on the shared synthetic dataset D_g.
 
 Every random draw of a round is an explicit input, collected in
@@ -45,7 +48,13 @@ class MdslConfig(NamedTuple):
     local_epochs: int = 4
     batch_size: int = 64
     hp: PsoHyperParams = PsoHyperParams()
+    pso_every_step: bool = False     # Eq. 8 after every minibatch step
     comm: CommConfig = CommConfig()
+
+
+def per_step_pso(cfg: MdslConfig) -> bool:
+    """Whether LocalUpdate applies Eq. 8 every step (fedavg never does)."""
+    return cfg.pso_every_step and cfg.algorithm != "fedavg"
 
 
 class SwarmTrainState(NamedTuple):
@@ -66,7 +75,9 @@ class SwarmTrainState(NamedTuple):
 class RoundDraws(NamedTuple):
     """Every random draw one round consumes."""
     coeffs: torch.Tensor             # (C, 3) PSO c0 ~ U(0,1), c1, c2 ~ N(0,1)
-    perms: torch.Tensor              # (C, E, n) int64 epoch permutations
+    # (C, E, n) int64 epoch permutations; under per-step Eq. 8 (C, 1, n):
+    # one permutation a worker, cycled over the E epochs
+    perms: torch.Tensor
     up_seeds: torch.Tensor           # (C, L) int32 uplink rounding seeds
     down_seeds: torch.Tensor         # (L,) int32 downlink rounding seeds
     keep: Optional[torch.Tensor] = None    # (C,) erasure draw, 1 = kept
@@ -99,7 +110,8 @@ def sample_round_draws(gen: torch.Generator, cfg: MdslConfig,
     byz = comm.byzantine > 0 and comm.byzantine_mode == "gaussian"
     return RoundDraws(
         coeffs=pso.sample_coefficients(gen, C, device),
-        perms=torch.rand((C, cfg.local_epochs, n_local), generator=gen,
+        perms=torch.rand((C, 1 if per_step_pso(cfg) else cfg.local_epochs,
+                          n_local), generator=gen,
                          device=device).argsort(dim=-1),
         up_seeds=torch.randint(0, imax, (C, L), generator=gen,
                                device=device, dtype=torch.int32),
@@ -164,12 +176,38 @@ def _local_sgd_epochs(params: PyTree, data_x: torch.Tensor,
     return params
 
 
+def _pso_every_step(workers: WorkerState, gbest_params: PyTree,
+                    data_x: torch.Tensor, data_y: torch.Tensor,
+                    loss_fn: LossFn, coeffs: pso.PsoCoefficients, lr: float,
+                    cfg: MdslConfig, perm: torch.Tensor) -> WorkerState:
+    """Per-step Eq. 8: (n // bs) * E minibatch steps, each the gradients
+    of all C workers then one `pso.pso_step`. The minibatches run through
+    one permutation a worker (perm (C, n)) repeated end to end, as the
+    reference's `jnp.resize` does."""
+    C, n = data_x.shape[:2]
+    bs = min(cfg.batch_size, n)
+    steps = (n // bs) * cfg.local_epochs
+    idx = perm.repeat(1, -(-steps * bs // n))[:, :steps * bs]
+    grad_fn = torch.func.vmap(torch.func.grad(loss_fn))
+    rows = torch.arange(C, device=data_x.device)[:, None]
+    for s in range(steps):
+        i = idx[:, s * bs:(s + 1) * bs]
+        grads = grad_fn(workers.params, data_x[rows, i], data_y[rows, i])
+        workers = pso.pso_step(workers, gbest_params, grads, coeffs, lr,
+                               cfg.hp)
+    return workers
+
+
 def local_update(workers: WorkerState, gbest_params: PyTree,
                  data_x: torch.Tensor, data_y: torch.Tensor,
                  loss_fn: LossFn, coeffs: pso.PsoCoefficients, lr: float,
                  cfg: MdslConfig, perms: torch.Tensor) -> WorkerState:
     """Round-level Eq. 8: E SGD epochs, then the PSO displacement once
-    (fedavg keeps the SGD result)."""
+    (fedavg keeps the SGD result); per-step Eq. 8 under
+    `cfg.pso_every_step`."""
+    if per_step_pso(cfg):
+        return _pso_every_step(workers, gbest_params, data_x, data_y,
+                               loss_fn, coeffs, lr, cfg, perms[:, 0])
     w0 = workers.params
     trained = _local_sgd_epochs(w0, data_x, data_y, loss_fn, lr, cfg, perms)
     sgd_delta = tree_map(lambda a, b: a - b, trained, w0)

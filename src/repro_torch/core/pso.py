@@ -17,7 +17,9 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.pytree import tree_leaves, tree_map
+from repro_torch.kernels.pso_update.ops import pso_update
+from repro_torch.pytree import (tree_flatten, tree_leaves, tree_map,
+                                tree_unflatten)
 
 PyTree = Any
 
@@ -115,6 +117,30 @@ def velocity_update(w, v, wl, wg, d, coeffs: PsoCoefficients,
     if clip > 0.0:
         v_new = v_new.clamp(-clip, clip)
     return v_new
+
+
+def pso_step(state: WorkerState, gbest_params: PyTree, grads: PyTree,
+             coeffs: PsoCoefficients, lr: float,
+             hp: PsoHyperParams = PsoHyperParams()) -> WorkerState:
+    """One Eq.-8 update of every worker, with d = -lr * grad:
+
+        v' = clip(c0 v + c1 (w^l - w) + c2 (w^g - w) - lr g),  w' = w + v'
+
+    through the fused `pso_update` kernel, one launch a leaf for all C
+    workers (coefficient rows (c0, c1, c2, clip), w^g broadcast); a CPU
+    tensor takes the kernel's plain version."""
+    clip = torch.full_like(coeffs.c0, max(hp.velocity_clip, 0.0))
+    rows = torch.stack([coeffs.c0, coeffs.c1, coeffs.c2, clip],
+                       dim=1).to(torch.float32).contiguous()
+
+    leaves, treedef = tree_flatten(state.params)
+    out = [pso_update(rows, w.contiguous(), v.contiguous(), wl.contiguous(),
+                      wg.contiguous(), (-lr * g).to(w.dtype).contiguous())
+           for w, v, wl, wg, g in zip(leaves, *(tree_leaves(t) for t in (
+               state.velocity, state.best_params, gbest_params, grads)))]
+    return state._replace(params=tree_unflatten(treedef, [o[0] for o in out]),
+                          velocity=tree_unflatten(treedef,
+                                                  [o[1] for o in out]))
 
 
 def sgd_step(params: PyTree, grads: PyTree, lr) -> PyTree:

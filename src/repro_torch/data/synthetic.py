@@ -85,6 +85,13 @@ def sample_labels_dirichlet(gen: torch.Generator, rng: np.random.Generator,
     return torch.multinomial(probs, n, replacement=True, generator=gen)
 
 
+def sample_dataset(gen: torch.Generator, labels: torch.Tensor,
+                   prototypes: torch.Tensor, spec: SyntheticImageSpec
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x, y) for given labels (compat shim over sample_images)."""
+    return sample_images(gen, labels, prototypes, spec), labels
+
+
 def uniform_labels(gen: torch.Generator, shape, num_classes: int,
                    device) -> torch.Tensor:
     return torch.randint(0, num_classes, tuple(shape), generator=gen,

@@ -5,13 +5,19 @@
                                        package's keys)
     run_prepared(prep)   -> RunResult  the same loop on a Prepared whose
                                        parts a caller swapped
+    sweep(specs, seeds)  -> [RunResult] scenarios x seeds, one artifact
+                                       each; `jobs > 1` fans the grid over
+                                       spawned processes
 
 Entry points run on the CUDA card unless the caller passes a device
 (`device="cpu"` for the tests); with no card and no device they raise.
-For the whole run the runner turns TF32 off in both the matmul and the
-cuDNN convolution paths (`torch.backends.cuda.matmul.allow_tf32` and
-`torch.backends.cudnn.allow_tf32`), so the card computes in full f32 like
-the reference, and restores both flags afterwards.
+For the whole run the runner sets the numerics it needs and restores
+them afterwards (`_deterministic_f32`): TF32 off in both the matmul and
+the cuDNN convolution paths, so the card computes in full f32 like the
+reference, and cuDNN held to deterministic algorithms
+(`torch.backends.cudnn.deterministic`, no `benchmark` autotuning), so one
+spec and seed give one record on the card, run after run and process
+after process, as the reference gives one record per seed.
 
 Randomness: paper runs take their data from `run.seed`, and the initial
 params and every round's `RoundDraws` from one torch.Generator seeded
@@ -43,8 +49,6 @@ Mesh checkpoints (`run.ckpt_dir`): the global params after each round,
 saved after the round's row is built (so `step_time_s` excludes the
 save) by `checkpoint.CheckpointManager` (the newest three kept); the
 record gains `ckpt_steps`.
-
-Not ported yet (raises NotImplementedError): `sweep(jobs > 1)`.
 """
 from __future__ import annotations
 
@@ -61,19 +65,22 @@ import torch
 from repro_torch.bridge import (transformer_params_from_numpy,
                                 tree_from_numpy)
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.comm.budget import (dense_bytes, downlink_config,
-                                     host_round_bytes, payload_bytes)
+from repro_torch.comm.budget import (CommConfig, dense_bytes,
+                                     downlink_config, host_round_bytes,
+                                     payload_bytes)
 from repro_torch.configs.base import get_arch
 from repro_torch.configs.paper_cnn import paper_cnn, paper_resnet
 from repro_torch.core import losses as losses_mod
 from repro_torch.core import mdsl, noniid, swarm_dist
 from repro_torch.core import population as pop
 from repro_torch.core.mdsl import MdslConfig
-from repro_torch.core.pso import WorkerState
+from repro_torch.core.pso import PsoHyperParams, WorkerState
 from repro_torch.data import partition
 from repro_torch.data.partition import FederatedData
 from repro_torch.data.synthetic import CIFAR_LIKE, MNIST_LIKE
-from repro_torch.experiments.spec import ExperimentSpec, override, to_dict
+from repro_torch.experiments.spec import (AlgoSpec, DataSpec, ExperimentSpec,
+                                          ModelSpec, RunSpec, override,
+                                          to_dict)
 from repro_torch.kernels import runtime
 from repro_torch.kernels.runtime import resolve_device
 from repro_torch.models.transformer import Transformer
@@ -117,23 +124,31 @@ def _noniid2_groups(C: int) -> list[tuple[int, float]]:
     return [(c, a) for c, (_, a) in zip(counts, fracs)]
 
 
+def _dirichlet(alpha: float):
+    return lambda seed, C, spec, n, device="cpu": (
+        partition.dirichlet_partition(seed, C, alpha, spec, n, device=device))
+
+
+# the partition cases: (seed, C, image spec, n_local, device) -> data
+CASES = {
+    "iid": lambda seed, C, spec, n, device="cpu": partition.iid_partition(
+        seed, C, spec, n, device=device),
+    "noniid1": _dirichlet(0.5),
+    "noniid2": lambda seed, C, spec, n, device="cpu": (
+        partition.mixed_dirichlet_partition(seed, _noniid2_groups(C), spec,
+                                            n, device=device)),
+}
+
+
 def make_case_data(case: str, dataset: str, num_workers: int, seed: int,
                    n_local: int = 512, alpha: Optional[float] = None,
                    device="cpu") -> tuple[FederatedData, Any]:
     """Partitioned fleet data for one case; `alpha` overrides the
     Dirichlet concentration of noniid1 (default 0.5)."""
     spec = IMAGE_SPECS[dataset]
-    if case == "iid":
-        data = partition.iid_partition(seed, num_workers, spec, n_local,
-                                       device=device)
-    elif case == "noniid1":
-        data = partition.dirichlet_partition(
-            seed, num_workers, 0.5 if alpha is None else alpha, spec,
-            n_local, device=device)
-    else:
-        data = partition.mixed_dirichlet_partition(
-            seed, _noniid2_groups(num_workers), spec, n_local, device=device)
-    return data, spec
+    case_fn = (_dirichlet(alpha) if case == "noniid1" and alpha is not None
+               else CASES[case])
+    return case_fn(seed, num_workers, spec, n_local, device=device), spec
 
 
 class Prepared(NamedTuple):
@@ -204,7 +219,8 @@ def _prepare_paper(spec: ExperimentSpec, device: torch.device,
     eta = noniid.noniid_degree_from_labels(data.y, data.global_y, L, coeffs)
     cfg = MdslConfig(algorithm=a.algorithm, tau=a.tau,
                      local_epochs=a.local_epochs, batch_size=a.batch_size,
-                     hp=a.hp, comm=spec.comm)
+                     hp=a.hp, pso_every_step=a.pso_every_step,
+                     comm=spec.comm)
     gen = torch.Generator(device=device).manual_seed(r.seed + 1)
     params = (img_model.init(gen) if init_params is None
               else tree_from_numpy(init_params, device))
@@ -503,17 +519,24 @@ def build(spec: ExperimentSpec, device=None,
 
 
 @contextlib.contextmanager
-def _full_f32():
-    """TF32 off for matmuls and cuDNN convolutions, restored after."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _deterministic_f32():
+    """The run's numerics, restored after: TF32 off for matmuls and cuDNN
+    convolutions, and cuDNN held to deterministic algorithms with no
+    autotuning (left free, its weight-gradient algorithm for the grouped
+    convolutions `vmap` makes of CNN5 sums in an order that changes from
+    run to run: `determinism_probe.py`)."""
+    b = torch.backends
+    saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+             b.cudnn.deterministic, b.cudnn.benchmark)
+    b.cuda.matmul.allow_tf32 = False
+    b.cudnn.allow_tf32 = False
+    b.cudnn.deterministic = True
+    b.cudnn.benchmark = False
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+        (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+         b.cudnn.deterministic, b.cudnn.benchmark) = saved
 
 
 def _run_paper(prep: Prepared, verbose: bool, em=NULL, tracer=None,
@@ -661,7 +684,7 @@ def run_prepared(prep: Prepared, verbose: bool = True) -> RunResult:
                 count=o.profile_rounds, emitter=em, cuda=cuda)
     loop = _run_mesh if engine == "mesh" else _run_paper
     try:
-        with obs_trace.activated(tracer), _full_f32():
+        with obs_trace.activated(tracer), _deterministic_f32():
             record, state = loop(prep, verbose, em, tracer, profiler)
     except BaseException:
         if em.active:
@@ -704,20 +727,15 @@ def _final(record: dict) -> float:
     return record.get("final_acc", record["global_loss"][-1])
 
 
-def sweep(specs, seeds=(0,), out_dir: str | Path | None = None,
-          verbose: bool = False, jobs: int = 1,
-          device=None) -> list[RunResult]:
-    """Scenarios x seeds, one artifact each, run one after another. Any
-    `run.out` on the input specs is cleared: per-(scenario, seed) naming
-    wins. With obs on (the first cell's `run.obs`), a sweep-level stream
-    `sweep__<name>__...jsonl` beside the cells' own gets one SweepEvent a
-    finished cell and a closing run_end. Unless `verbose`, each cell
-    prints `[sweep] <cell> s<seed>: <final> wall=<s>s -> <artifact>`
-    (plus `events=<stream>` with obs on) to stderr."""
-    if jobs > 1:
-        raise NotImplementedError("sweep(jobs > 1) is not ported to "
-                                  "repro_torch yet")
-    cells: list[tuple[ExperimentSpec, Path]] = []
+def sweep_cells(specs, seeds=(0,), out_dir: str | Path | None = None
+                ) -> list[tuple[ExperimentSpec, Path]]:
+    """The (spec, artifact path) cells of a sweep, in grid order: each
+    spec at each seed with `run.out` cleared. Cells whose default paths
+    collide (a swept axis the scenario name does not show, such as
+    `algo.algorithm`) get their grid index in the file name
+    (`<name>__c<i>__s<seed>__torch.json`), so no cell overwrites
+    another."""
+    cells = []
     for spec in specs:
         for seed in seeds:
             s = override(spec, f"run.seed={seed}", "run.out=none")
@@ -725,6 +743,56 @@ def sweep(specs, seeds=(0,), out_dir: str | Path | None = None,
             if out_dir is not None:
                 path = Path(out_dir) / path.name
             cells.append((s, path))
+    seen: dict[Path, int] = {}
+    for _, path in cells:
+        seen[path] = seen.get(path, 0) + 1
+    out = []
+    for i, (s, path) in enumerate(cells):
+        if seen[path] > 1:
+            stem = path.name[:-len(f"__s{s.run.seed}__torch.json")]
+            path = path.with_name(f"{stem}__c{i}__s{s.run.seed}__torch.json")
+        out.append((s, path))
+    return out
+
+
+def _sweep_task(spec_dict: dict, path: str, verbose: bool,
+                device: str) -> dict:
+    """One (scenario, seed) cell, serial or in a pool process, its spec
+    passed as the JSON dict so the task pickles cleanly: runs it (the
+    run sets its own numerics, `_deterministic_f32`), saves the artifact
+    and returns {record, events, wall_s, launches}, the launches this
+    process made for the cell (counts are per process). Obs run ids
+    embed the pid, so pool cells need no coordination of their
+    streams."""
+    from repro_torch.experiments.spec import from_dict
+    before = runtime.counts()
+    t0 = time.time()
+    res = run(from_dict(spec_dict), verbose=verbose, device=device)
+    res.save(path)
+    launches = {k: n - before.get(k, 0) for k, n in runtime.counts().items()
+                if n != before.get(k, 0)}
+    return {"record": res.record, "events": res.events_path,
+            "wall_s": time.time() - t0, "launches": launches}
+
+
+def sweep(specs, seeds=(0,), out_dir: str | Path | None = None,
+          verbose: bool = False, jobs: int = 1,
+          device=None) -> list[RunResult]:
+    """Scenarios x seeds, one artifact each (`sweep_cells`), results in
+    grid order. Any `run.out` on the input specs is cleared: per-cell
+    naming wins. `jobs > 1` runs the cells in a pool of that many
+    processes, started with `spawn` (a child must not inherit the
+    parent's CUDA context), each on `device`; a pool cell's record is
+    the one the same cell gives with `jobs = 1`, bit for bit. The device
+    is resolved here first, so with no card and no device the sweep
+    raises before it starts a process. With obs on (the first cell's
+    `run.obs`), a sweep-level stream `sweep__<name>__...jsonl` beside the
+    cells' own gets one SweepEvent a finished cell and a closing run_end.
+    Unless `verbose`, each cell prints `[sweep] <cell> s<seed>: <final>
+    wall=<s>s launches=<counts> -> <artifact>` (plus `events=<stream>`
+    with obs on) to stderr; the launches are the cell's own."""
+    device = resolve_device(device)
+    cells = sweep_cells(specs, seeds, out_dir)
 
     sem = NULL
     if cells and cells[0][0].run.obs.enabled:
@@ -734,22 +802,37 @@ def sweep(specs, seeds=(0,), out_dir: str | Path | None = None,
         rid = new_run_id(f"sweep__{first.name or 'grid'}")
         sem = Emitter(rid, JsonlSink(base / f"{rid}.jsonl"))
 
+    def finish(s, path, out, results):
+        record, events, wall_s = out["record"], out["events"], out["wall_s"]
+        sem.sweep_cell(_cell_name(s), seed=s.run.seed, final=_final(record),
+                       wall_s=round(wall_s, 3), artifact=str(path),
+                       events=events)
+        if not verbose:
+            ev = f" events={events}" if events else ""
+            print(f"[sweep] {_cell_name(s)} s{s.run.seed}: "
+                  f"{_final(record):.4f} wall={wall_s:.1f}s "
+                  f"launches={out['launches']} -> {path}{ev}",
+                  file=sys.stderr, flush=True)
+        results.append(RunResult(spec=s, record=record, events_path=events))
+
     results: list[RunResult] = []
     try:
-        for s, path in cells:
-            t0 = time.time()
-            res = run(s, verbose=verbose, device=device)
-            res.save(path)
-            wall_s = time.time() - t0
-            sem.sweep_cell(_cell_name(s), seed=s.run.seed,
-                           final=_final(res.record), wall_s=round(wall_s, 3),
-                           artifact=str(path), events=res.events_path)
-            if not verbose:
-                ev = f" events={res.events_path}" if res.events_path else ""
-                print(f"[sweep] {_cell_name(s)} s{s.run.seed}: "
-                      f"{_final(res.record):.4f} wall={wall_s:.1f}s -> "
-                      f"{path}{ev}", file=sys.stderr, flush=True)
-            results.append(res)
+        if jobs <= 1:
+            for s, path in cells:
+                finish(s, path, _sweep_task(to_dict(s), str(path), verbose,
+                                            str(device)), results)
+            return results
+
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=jobs, mp_context=ctx) as ex:
+            futs = [ex.submit(_sweep_task, to_dict(s), str(path), verbose,
+                              str(device))
+                    for s, path in cells]
+            for (s, path), fut in zip(cells, futs):
+                finish(s, path, fut.result(), results)
         return results
     finally:
         if sem.active:
@@ -757,3 +840,47 @@ def sweep(specs, seeds=(0,), out_dir: str | Path | None = None,
                         status="ok" if len(results) == len(cells)
                         else "error")
             sem.close()
+
+
+def spec_from_paper_kwargs(algorithm="mdsl", case="noniid1",
+                           dataset="mnist_like", rounds=20, num_workers=50,
+                           model="cnn", width_mult=8, tau=0.9,
+                           local_epochs=4, batch_size=64, lr=0.01,
+                           velocity_clip=0.1, seed=0, eta_coeffs=None,
+                           n_local=512, log_every=1,
+                           comm=None) -> ExperimentSpec:
+    """The JAX package's legacy `run_paper_experiment(...)` kwargs as a
+    spec (the deprecated shim in `launch/train.py` routes through it)."""
+    return ExperimentSpec(
+        data=DataSpec(dataset=dataset, case=case, num_workers=num_workers,
+                      n_local=n_local,
+                      eta_coeffs=tuple(eta_coeffs) if eta_coeffs else None),
+        model=ModelSpec(kind="paper", name=model, width_mult=width_mult),
+        algo=AlgoSpec(algorithm=algorithm, tau=tau,
+                      local_epochs=local_epochs, batch_size=batch_size,
+                      hp=PsoHyperParams(learning_rate=lr,
+                                        velocity_clip=velocity_clip)),
+        comm=(comm or CommConfig()),
+        run=RunSpec(rounds=rounds, seed=seed, log_every=log_every))
+
+
+def spec_from_mesh_kwargs(arch, steps=5, reduced=True, seq_len=128,
+                          per_worker_batch=2, num_spatial=2, ckpt_dir=None,
+                          seed=0, comm=None) -> ExperimentSpec:
+    """The legacy `run_mesh_training(...)` kwargs as a spec."""
+    return ExperimentSpec(
+        data=DataSpec(num_workers=num_spatial),
+        model=ModelSpec(kind="mesh", name=arch, reduced=reduced,
+                        seq_len=seq_len, per_worker_batch=per_worker_batch),
+        algo=AlgoSpec(algorithm="mdsl", tau=0.9, local_steps=1,
+                      hp=PsoHyperParams(learning_rate=3e-3,
+                                        velocity_clip=1.0)),
+        comm=(comm or CommConfig()),
+        run=RunSpec(rounds=steps, seed=seed,
+                    ckpt_dir=str(ckpt_dir) if ckpt_dir else None))
+
+
+__all__ = ["ARTIFACTS", "CASES", "SCHEMA_VERSION", "Prepared", "RunResult",
+           "build", "default_out", "load_result", "make_case_data", "run",
+           "run_prepared", "spec_from_mesh_kwargs", "spec_from_paper_kwargs",
+           "sweep", "sweep_cells"]

@@ -25,7 +25,10 @@ with three guarantees every entry point relies on:
 `repro_torch.experiments.registry` names preset specs (the paper
 figures and comm regimes); `repro_torch.experiments.runner` executes
 them. Specs are field for field the JAX package's, so a spec JSON from
-`repro.experiments.to_dict` loads here unchanged.
+`repro.experiments.to_dict` loads here unchanged. The one field the JAX
+package's spec lacks, `algo.pso_every_step` (its `MdslConfig` has it, no
+spec path reaches it), is left out of `to_dict` while it is False, so a
+spec the reference can express serializes as the reference's does.
 """
 from __future__ import annotations
 
@@ -90,6 +93,9 @@ class AlgoSpec:
     batch_size: int = 64                 # paper minibatch size
     hp: PsoHyperParams = PsoHyperParams(learning_rate=0.01,
                                         velocity_clip=0.1)
+    # paper: Eq. 8 after every minibatch step (core/mdsl.MdslConfig)
+    # instead of once a round
+    pso_every_step: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +172,9 @@ class ExperimentSpec:
             if m.name not in MESH_ARCHS:
                 raise ValueError(f"unknown mesh arch {m.name!r} "
                                  f"(choose from {list(MESH_ARCHS)})")
+            if a.pso_every_step:
+                raise ValueError("algo.pso_every_step applies to the paper "
+                                 "engine only")
         for fname, v in [("data.num_workers", d.num_workers),
                          ("data.n_local", d.n_local),
                          ("model.width_mult", m.width_mult),
@@ -267,8 +276,11 @@ def _jsonable(obj: Any) -> Any:
 
 
 def to_dict(spec: ExperimentSpec) -> dict:
-    """Plain-JSON dict (lists for tuples, nested dicts for sub-specs)."""
+    """Plain-JSON dict (lists for tuples, nested dicts for sub-specs);
+    `algo.pso_every_step` only when set (see the module docstring)."""
     out = _jsonable(spec)
+    if not spec.algo.pso_every_step:
+        del out["algo"]["pso_every_step"]
     out["spec_version"] = SPEC_VERSION
     return out
 

@@ -43,7 +43,10 @@ from repro_torch.models import layers, recurrent
 from repro_torch.models.layers import cdtype
 
 PyTree = Any
-_LATER = "is not ported yet (a later slice of the port, ROADMAP queue 1 #13)"
+# where the missing blocks stand in ROADMAP.md's queue 1: the xLSTM
+# blocks, then MoE, cross-attention and the other inputs
+_LATER = ("is not ported yet (a later slice of the port: ROADMAP queue 1, "
+          "'The xLSTM blocks' and 'MoE, then cross-attention')")
 
 
 def _unsupported(cfg: ArchConfig) -> list[str]:

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of repro_torch, and not chip_smoke.py
-or flash_probe.py, imports jax or the JAX package; its entry points never fall back to the
-CPU on their own."""
+"""The port stands alone: no module of repro_torch (its figure drivers
+and examples included), and not chip_smoke.py, flash_probe.py or
+determinism_probe.py, imports jax, the JAX package or the root
+`benchmarks` drivers; its entry points never fall back to the CPU on
+their own."""
 import ast
 from pathlib import Path
 
@@ -9,7 +11,13 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "flash_probe.py"]
+    ROOT / "chip_smoke.py", ROOT / "flash_probe.py",
+    ROOT / "determinism_probe.py"]
+# the figure drivers and examples: each must be among PORT_FILES
+DRIVERS = ("figures/common.py", "figures/fig3_accuracy.py",
+           "figures/fig1_metric.py", "figures/comm_efficiency.py",
+           "figures/population_bench.py", "examples/quickstart.py",
+           "examples/edge_iot_noniid.py", "examples/serve_decode.py")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -26,8 +34,13 @@ def _imported_roots(path: Path) -> set[str]:
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_no_jax_or_reference_imports(path):
     assert path.exists(), path
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "benchmarks"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_drivers_are_checked():
+    port = ROOT / "src" / "repro_torch"
+    assert {port / d for d in DRIVERS} <= set(PORT_FILES)
 
 
 def test_run_without_device_raises_instead_of_cpu(monkeypatch):
@@ -46,12 +59,17 @@ def test_cli_without_device_raises(monkeypatch, tmp_path):
                     "--out", str(tmp_path / "out.json")])
 
 
-def test_sweep_serial_writes_artifacts_and_rejects_jobs(tmp_path):
+def test_sweep_serial_writes_artifacts_and_rejects_jobs(tmp_path,
+                                                       monkeypatch):
+    """Serial artifacts; a pool sweep (jobs > 1) with no card and no
+    device is rejected before any process starts."""
     from repro_torch.experiments import get_scenario, override, sweep
     spec = override(get_scenario("quickstart"), "run.rounds=1",
                     "data.num_workers=2", "data.n_local=64")
-    with pytest.raises(NotImplementedError):
-        sweep([spec], jobs=2, device="cpu")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sweep([spec], jobs=2)
     results = sweep([spec], seeds=(0, 1), out_dir=tmp_path, device="cpu")
     assert [r.spec.run.seed for r in results] == [0, 1]
     assert sorted(p.name for p in tmp_path.iterdir()) == [

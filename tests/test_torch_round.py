@@ -274,8 +274,42 @@ def test_wire_stages_bitwise_on_reference_inputs(preps):
     _leaves_close(ppr, jpr, 0.0)
 
 
-def test_two_round_run_tracks_reference(preps):
-    jprep, pprep = preps("mdsl")
+# the paper presets whose 2-round runs are held to the reference's: the
+# fleet cut to C workers (the Byzantine ones to one attacker, and the
+# trimmed mean to 0.25 so it still trims one a side)
+RUN_PRESETS = ("low-bandwidth-int4", "low-bandwidth-topk", "byzantine-median",
+               "byzantine-trimmed", "adaptive-tiers", "lossy-uplink-erasure",
+               "noisy-uplink-awgn", "rayleigh-uplink", "rayleigh-outage",
+               "snr-tiered-bits", "energy-budget", "paper/fig3-noniid1")
+
+
+@pytest.fixture
+def two_threads():
+    """torch on two threads: beside the suite's other workers, a thread a
+    core multiplies the small ops' cost many times."""
+    from test_torch_figures import torch_threads
+    with torch_threads(2):
+        yield
+
+
+def _preset_spec(name):
+    cut = [f"data.num_workers={C}", "model.width_mult=2",
+           f"data.n_local={N_LOCAL}", "algo.local_epochs=1", "run.rounds=2"]
+    spec = get_scenario(name)
+    if spec.comm.byzantine:
+        cut.append("comm.byzantine=1")
+    if spec.comm.aggregator == "trimmed_mean":
+        cut.append("comm.trim_ratio=0.25")
+    return override(spec, *cut)
+
+
+@pytest.mark.parametrize("preset", RUN_PRESETS)
+def test_two_round_run_tracks_reference(preset, preps, two_threads):
+    """Selected, delivered and uplink bytes equal; losses within 1e-4;
+    global params within the int4 wire's bound below (a bound for every
+    preset: the dense and top-k wires quantize less)."""
+    jprep, pprep = (preps("mdsl") if preset == "low-bandwidth-int4"
+                    else _prepare(_preset_spec(preset), _np_data()))
     jrecord = jrunner._run_paper(jprep, verbose=False)
     state, key, draws = jprep.state, jprep.key, []
     for _ in range(2):

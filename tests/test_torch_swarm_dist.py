@@ -374,7 +374,7 @@ def test_ckpt_dir_with_obs_on_the_mesh_engine(tmp_path):
 
 def test_set_cli_runs_on_cpu(tmp_path):
     out = tmp_path / "mesh.json"
-    train.main(["--scenario", "mesh/smollm-smoke", "--rounds", "2",
+    train.main(["--scenario", "mesh/smollm-smoke", "--steps", "2",
                 "--set", "model.seq_len=16", "--set", "algo.tau=0.5",
                 "--device", "cpu", "--out", str(out)])
     res = json.loads(out.read_text())
