@@ -178,18 +178,57 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      the reference's keys (the --json ones those of the root
      BENCH_stragglers.json and BENCH_population.json); headline rows and
      wall times, and the seconds of phases 19-22;
- 23. prints the card line, the `kernels` JSON line (each row with its
+ 23. the scan's backward (csrc/rglru_scan_bwd.cu) against its plain
+     version on the card, dh0, da and db bitwise at RecurrentGemma-9B's
+     training shape (2, 2048, 4096) and at the ragged (3, 1000, 1000),
+     (2, 1, 128) and (1, 4097, 4096); at the training shape and (3, 1000,
+     1000) also against autograd of `rglru_scan_ref` within 2 f32 ulps an
+     element; device (CUDA graph), eager and plain times and the bound
+     (20 bytes an element) at the training shape, and the forward's
+     there (library: none for either);
+ 24. a small training check: two M-DSL rounds of reduced
+     recurrentgemma-9b (rglru, rglru, swa) in f32 (W = 2) on the card
+     against the same rounds on the CPU, as phase 10 (its tolerances);
+     rglru_scan 2 x 14, rglru_scan_bwd 2 x 4 and the CUDA-core flash
+     kernels 2 x 7 and 2 x 2 (hd 32 in f32), pso_update once a leaf a
+     round;
+ 25. RecurrentGemma-9B training at full width, the depth cut to one
+     (rglru, rglru, swa) group (1,705,070,592 params), W 1, B 2, S 2048,
+     bf16, through `Transformer.loss` under the mesh engine as phase 11's
+     StableLM-3B round: a warm-up round and a timed round; per round
+     rglru_scan 2 x (2 + 2) = 8, rglru_scan_bwd 2, flash_attention 4 and
+     flash_attention_bwd 1 (the hd-256 builds; the backward's first
+     path), pso_update once a leaf, the _f32 counters never; losses and
+     global params finite; seconds a round and peak memory (one worker:
+     at W 2 the engine's per-worker state of the 1.71 B params, f32
+     error-feedback residuals included, ran out of the 80 GB card);
+ 26. a small xLSTM serve check: reduced xlstm-350m (mlstm, slstm) in f32,
+     prompt 300 (past one mLSTM chunk of 256), on the card against the
+     CPU from the same params: logits within 5e-4, greedy tokens equal,
+     no kernel launched;
+ 27. xLSTM-350M served at full width through `launch.serve.serve`
+     (batch 4, prompt 4096, gen 32, bf16, random weights): no kernel
+     launches; prefill and decode tok/s, peak memory, and one sLSTM
+     layer's prefill alone (host ms, a time step's us, its share of the
+     prefill over the 3 sLSTM layers);
+ 28. `mesh/xlstm-smoke` at full width through `experiments.run`
+     (reduced=false, seq_len 2048, W 2, B 2, bf16) for 2 rounds: losses
+     and global params finite, pso_update once a leaf a round and no
+     other launch; seconds a round and peak memory;
+ 29. prints the card line, the `kernels` JSON line (each row with its
      share of bound = bound_ms / ms; each kernel's first row with its
      launches in the int4 straggler run, the int4 population run, the
      mesh straggler run, the obs run, the mesh checkpoint run, the
-     sweep's cells (phase 20) and the per-step Eq.-8 run; each
+     sweep's cells (phase 20), the per-step Eq.-8 run, phase 25's
+     training rounds and phase 28's xLSTM rounds; each
      flash row with its cores,
      the CUDA-core kernel's and the f32 path's times; a row of the
      forward at the mesh shape, rows of quant_pack_ef, wire_agg and
      dequant_unpack at the large leaf, of quant_pack and dequant_unpack
      at the straggler uplink's int4 C = 50, of the forward and backward
-     at hd 80, of the backward at hd 256 and of pso_update at the
-     per-step Eq. 8's CNN5 leaf) and, last, the ok line.
+     at hd 80, of the backward at hd 256 (its launches in phase 25), of
+     pso_update at the per-step Eq. 8's CNN5 leaf, of rglru_scan at the
+     training shape and of rglru_scan_bwd) and, last, the ok line.
 
 Tolerances: payloads, scales, decodes and the wire_agg median bitwise;
 the obs stream's round rows and the restored checkpoint bitwise;
@@ -210,8 +249,14 @@ rowsum(dO * O) from the f32 output, the kernel from the bf16 one). The
 small mesh rounds: losses within 5e-6, params and velocities within
 2e-7, masks equal (as the CPU parity tests). The repeated paper runs
 (phase 19), the sweep's cells against their jobs = 1 runs (phase 20) and
-the per-step Eq. 8 (phase 21): bitwise. Every timing line of phases
-13-22 carries the card's name and power limit.
+the per-step Eq. 8 (phase 21): bitwise. The scan's backward: bitwise
+against its plain version, within 2 f32 ulps an element against
+autograd of the plain loop (expected 0: the same rounded products and
+sums; the ulps leave room for autograd adding a step's two gradient
+terms in the other order, which is exact for two terms). The small
+training check (phase 24): phase 10's. The small xLSTM serve (phase 26):
+logits within 5e-4, greedy tokens equal. Every timing line of phases
+13-28 carries the card's name and power limit.
 """
 import json
 import math
@@ -1293,8 +1338,8 @@ def flash_bwd_checks(dev):
                  fwd_bwd_ms=fb), fwd_row)
 
 
-def small_mesh_check(dev):
-    """Two M-DSL rounds of reduced smollm-360m in f32 (W = 2) on the card
+def small_mesh_check(dev, arch: str = MESH_ARCH):
+    """Two M-DSL rounds of the reduced arch in f32 (W = 2) on the card
     (kernels) against the same rounds on the CPU (plain versions), from
     the same params (through the bridge), batches and draws."""
     import dataclasses
@@ -1306,7 +1351,7 @@ def small_mesh_check(dev):
     from repro_torch.models.transformer import Transformer
     from repro_torch.pytree import tree_leaves, tree_map
 
-    cfg = dataclasses.replace(get_arch(MESH_ARCH).reduced(), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
     model = Transformer(cfg)
     gen = torch.Generator().manual_seed(5)
     cpu_params = model.init(gen, "cpu")
@@ -1358,13 +1403,22 @@ def small_mesh_check(dev):
                           f"{want}")
 
 
-def mesh_launches_per_round(cfg, n_leaves: int) -> dict:
-    """Kernel launches of one M-DSL round: per layer, each worker's
-    forward and remat recompute plus W + 1 evaluations through the
-    forward kernel, each worker's backward, and Eq. 8 once per leaf."""
-    L, W = cfg.num_layers, MESH_W
-    return {"flash_attention": L * (2 * W + W + 1),
-            "flash_attention_bwd": L * W, "pso_update": n_leaves}
+def mesh_launches_per_round(cfg, n_leaves: int, W: int = MESH_W) -> dict:
+    """Kernel launches of one M-DSL round, by block kind: per attention
+    layer (attn, swa) each worker's forward and remat recompute plus W + 1
+    evaluations through the flash forward, and each worker's backward
+    through the flash backward; the same per rglru layer through the scan
+    and the scan's backward; none per mlstm or slstm layer (plain
+    PyTorch); Eq. 8 once per leaf. Kernels with no launch are left out."""
+    P = cfg.block_pattern
+    kinds = [P[i % len(P)] for i in range(cfg.num_layers)]
+    att = sum(k in ("attn", "swa") for k in kinds)
+    rg = kinds.count("rglru")
+    out = {"flash_attention": att * (2 * W + W + 1),
+           "flash_attention_bwd": att * W,
+           "rglru_scan": rg * (2 * W + W + 1), "rglru_scan_bwd": rg * W,
+           "pso_update": n_leaves}
+    return {k: n for k, n in out.items() if n}
 
 
 def mesh_main_path():
@@ -1692,13 +1746,15 @@ def hd_backward_checks(dev):
     return rows
 
 
-def hd80_mesh_round(dev):
-    """One M-DSL round of StableLM-3B at full width through the model's
-    code (`Transformer.loss` under the mesh engine's train step), the
-    depth cut to HD_MESH_LAYERS layers: W 2, B 1, S 2048, bf16, random
-    weights from a seed, the `mesh/smollm-smoke` scenario's algorithm and
-    wire. A warm-up round, then the timed round; counts reset just before
-    the two and read just after."""
+def depth_cut_mesh_rounds(dev, arch: str, layers: int, W: int, B: int,
+                          S: int, seed: int, note: str, card: str):
+    """Two M-DSL rounds of `arch` at full width through the model's code
+    (`Transformer.loss` under the mesh engine's train step), the depth cut
+    to `layers` layers: W workers, B, S, bf16, random weights from
+    `seed`, the `mesh/smollm-smoke` scenario's algorithm and wire. A
+    warm-up round, then the timed round; counts reset just before the
+    two and read just after, and held to `mesh_launches_per_round`
+    twice. Returns the counts."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -1708,14 +1764,14 @@ def hd80_mesh_round(dev):
     from repro_torch.models.transformer import Transformer
     from repro_torch.pytree import tree_leaves
 
-    cfg = dataclasses.replace(get_arch(HD_ARCH), num_layers=HD_MESH_LAYERS)
+    cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
     spec = get_scenario("mesh/smollm-smoke")
     a = spec.algo
-    dcfg = swarm_dist.DistSwarmConfig(num_spatial=MESH_W,
+    dcfg = swarm_dist.DistSwarmConfig(num_spatial=W,
                                       local_steps=a.local_steps, tau=a.tau,
                                       hp=a.hp, comm=spec.comm)
     model = Transformer(cfg)
-    gen = torch.Generator(device=dev).manual_seed(8)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     params = model.init(gen, dev)
@@ -1724,7 +1780,7 @@ def hd80_mesh_round(dev):
     step = swarm_dist.build_train_step(model.loss, dcfg)
 
     def batch(lead):
-        toks = torch.randint(0, cfg.vocab_size, lead + (HD_MESH_B, HD_MESH_S),
+        toks = torch.randint(0, cfg.vocab_size, lead + (B, S),
                              generator=gen, device=dev)
         return {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
 
@@ -1733,7 +1789,7 @@ def hd80_mesh_round(dev):
     for _ in range(2):
         draws = swarm_dist.sample_draws(gen, dcfg, state.global_params, dev,
                                         round_idx=state.round_idx)
-        wb, eb = batch((MESH_W,)), batch(())
+        wb, eb = batch((W,)), batch(())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, info = step(state, wb, eb, draws)
@@ -1743,21 +1799,20 @@ def hd80_mesh_round(dev):
     counts = runtime.counts()
     peak = torch.cuda.max_memory_allocated()
     want = {k: 2 * n for k, n in mesh_launches_per_round(
-        cfg, len(tree_leaves(params))).items()}
-    print(f"[mesh] {HD_ARCH} full width, depth cut to {HD_MESH_LAYERS} "
-          f"({n_params} params, bf16, hd 80) W={MESH_W} B={HD_MESH_B} "
-          f"S={HD_MESH_S}: round {times[1]:.4f} s after a {times[0]:.4f} s "
-          f"warm-up ({MESH_W * HD_MESH_B * HD_MESH_S / times[1]:.1f} tok/s), "
-          f"global loss {losses}, worker losses {info.losses.tolist()}, "
-          f"peak memory {peak / 2**30:.2f} GiB; launches {counts}",
-          flush=True)
+        cfg, len(tree_leaves(params)), W).items()}
+    print(f"[mesh] {arch} full width, depth cut to {layers} "
+          f"({n_params} params, bf16, {note}) W={W} B={B} S={S}: round "
+          f"{times[1]:.4f} s after a {times[0]:.4f} s warm-up "
+          f"({W * B * S / times[1]:.1f} tok/s), global loss {losses}, "
+          f"worker losses {info.losses.tolist()}, peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {counts} ({card})", flush=True)
     check(all(math.isfinite(x) for x in losses)
           and bool(torch.isfinite(info.losses).all()),
-          f"{HD_ARCH} mesh round: losses not finite")
+          f"{arch} mesh round: losses not finite")
     check(all(bool(torch.isfinite(x).all())
               for x in tree_leaves(state.global_params)),
-          f"{HD_ARCH} mesh round: global params not finite")
-    check(counts == want, f"{HD_ARCH} mesh rounds launched {counts}, "
+          f"{arch} mesh round: global params not finite")
+    check(counts == want, f"{arch} mesh rounds launched {counts}, "
                           f"expected {want}")
     del params, state, step, model
     torch.cuda.empty_cache()
@@ -2611,6 +2666,260 @@ def figure_drivers(card: str) -> None:
     print(f"[population] quick --json in {wall:.1f} s ({card})", flush=True)
 
 
+# -- this slice: the scan's backward, RecurrentGemma-9B training and the
+# xLSTM blocks -------------------------------------------------------------
+
+RG_ARCH = "recurrentgemma-9b"
+XLSTM_ARCH = "xlstm-350m"
+# the scan's backward: RecurrentGemma-9B's training shape first (its
+# rglru layers at B 2, S 2048), then the forward's ragged shapes
+SCAN_BWD_SHAPES = [(2, 2048, 4096), (3, 1000, 1000), (2, 1, 128),
+                   (1, 4097, 4096)]
+SCAN_BWD_ULPS = 2          # against autograd of the plain loop, per element
+# one worker: the mesh engine keeps per-worker f32 error-feedback
+# residuals and bf16 params, velocities and bests of the whole model, and
+# RecurrentGemma-9B's 256,000 x 4096 embedding alone is 1.05 B of its
+# 1.71 B params at depth 3; at W 2 the first round ran out of the card's
+# 80 GB in the uplink (73.1 GiB held, 7.8 more asked for)
+RG_MESH_LAYERS, RG_MESH_W, RG_MESH_B, RG_MESH_S = 3, 1, 2, 2048
+XLSTM_SERVE_BATCH, XLSTM_SERVE_PROMPT, XLSTM_SERVE_GEN = 4, 4096, 32
+XLSTM_SMALL_PROMPT = 300   # past one mLSTM chunk of 256
+XLSTM_MESH_ROUNDS, XLSTM_MESH_S = 2, 2048
+
+
+def scan_bwd_checks(dev):
+    """Phase 23: the scan's backward kernel against its plain version on
+    the card, bitwise (dh0, da, db) at every shape; at the training shape
+    and one ragged shape also against autograd of `rglru_scan_ref`
+    within SCAN_BWD_ULPS f32 ulps an element; device, eager and plain
+    times and the bound at the training shape, and the same of the
+    forward there. Returns {"rglru_scan_bwd": row, "rglru_scan": row}."""
+    import torch
+    from repro_torch.kernels.rglru_scan import ops as sops
+    from repro_torch.kernels.rglru_scan import ref as sref
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows = {}
+    for i, (B, S, D) in enumerate(SCAN_BWD_SHAPES[::-1]):
+        a = torch.rand((B, S, D), generator=g, device=dev) * 0.5 + 0.499
+        b = 0.1 * torch.randn((B, S, D), generator=g, device=dev)
+        h0 = torch.randn((B, D), generator=g, device=dev)
+        gs = torch.randn((B, S, D), generator=g, device=dev)
+        states = sops.rglru_scan_raw(h0, a, b)
+        got = sops.rglru_scan_bwd_raw(h0, a, states, gs)
+        want = sref.rglru_scan_bwd_ref(h0, a, states, gs)
+        torch.cuda.synchronize()
+        err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+        check(all(torch.equal(x, y) for x, y in zip(got, want)),
+              f"rglru_scan_bwd ({B}, {S}, {D}): not bitwise equal to the "
+              f"plain version (max abs err {err})")
+        line = (f"[check] rglru_scan_bwd B={B} S={S} D={D} f32 (plan "
+                f"{sops._bwd_plan(B, S, D)}): dh0, da, db bitwise equal to "
+                f"the plain version")
+        if (B, S, D) in (SCAN_BWD_SHAPES[0], SCAN_BWD_SHAPES[1]):
+            leaves = [t.clone().requires_grad_() for t in (h0, a, b)]
+            auto = torch.autograd.grad(sref.rglru_scan_ref(*leaves), leaves,
+                                       gs)
+            ulps = max(float(((x - y).abs() / ulp(y).clamp_min(2.0 ** -149))
+                             .max()) for x, y in zip(got, auto))
+            check(ulps <= SCAN_BWD_ULPS, f"rglru_scan_bwd ({B}, {S}, {D}): "
+                  f"{ulps} ulps from autograd of the plain loop (tol "
+                  f"{SCAN_BWD_ULPS})")
+            line += f"; {ulps:g} ulps from autograd of the plain loop"
+            del leaves, auto
+        print(line, flush=True)
+        if i < len(SCAN_BWD_SHAPES) - 1:
+            del a, b, h0, gs, states, got, want
+    # the training shape (the last one walked): times and bounds
+    n = B * S * D
+    bnd, by = bound_ms(20 * n + 8 * B * D, 3 * n)
+    t = {"ms": graph_ms(lambda: sops.rglru_scan_bwd_raw(h0, a, states, gs),
+                        10),
+         "eager_ms": time_ms(lambda: sops.rglru_scan_bwd_raw(h0, a, states,
+                                                             gs), 10),
+         "plain_ms": time_ms(lambda: sref.rglru_scan_bwd_ref(h0, a, states,
+                                                             gs), 3),
+         "library_ms": None}
+    rows["rglru_scan_bwd"] = dict(t, max_abs_err=err, bound_ms=bnd,
+                                  bound_by=by)
+    print(f"[time] rglru_scan_bwd training shape (B={B} S={S} D={D}): "
+          f"device {t['ms']:.4f} ms/launch, eager call {t['eager_ms']:.4f} "
+          f"ms, plain {t['plain_ms']:.3f} ms, library none, bound {bnd:.4g} "
+          f"ms ({by}, {20 * n + 8 * B * D} B; {bnd / t['ms']:.1%} of it)",
+          flush=True)
+    fbnd, fby = bound_ms(12 * n + 8 * B * D, 2 * n)
+    ft = {"ms": graph_ms(lambda: sops.rglru_scan_raw(h0, a, b), 10),
+          "eager_ms": time_ms(lambda: sops.rglru_scan_raw(h0, a, b), 10),
+          "plain_ms": time_ms(lambda: sref.rglru_scan_ref(h0, a, b), 3),
+          "library_ms": None}
+    fwant = sref.rglru_scan_ref(h0, a, b)
+    check(torch.equal(sops.rglru_scan_raw(h0, a, b), fwant),
+          "rglru_scan at the training shape: not bitwise the plain version")
+    rows["rglru_scan"] = dict(ft, max_abs_err=0.0, bound_ms=fbnd,
+                              bound_by=fby)
+    print(f"[time] rglru_scan training shape (B={B} S={S} D={D}): device "
+          f"{ft['ms']:.4f} ms/launch, eager call {ft['eager_ms']:.4f} ms, "
+          f"plain {ft['plain_ms']:.3f} ms, bound {fbnd:.4g} ms ({fby}; "
+          f"{fbnd / ft['ms']:.1%} of it)", flush=True)
+    del a, b, h0, gs, states, got, want, fwant
+    torch.cuda.empty_cache()
+    return rows
+
+
+def small_xlstm_serve_check(dev):
+    """Phase 26: reduced xlstm-350m (mlstm, slstm) in f32, a prompt past
+    one mLSTM chunk, on the card against the CPU from the same params
+    (through the bridge): logits within SERVE_LOGIT_TOL, greedy tokens
+    equal, no kernel launched."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(get_arch(XLSTM_ARCH).reduced(),
+                              dtype="float32")
+    model = Transformer(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(26), "cpu")
+    gpu_params = bridge.transformer_params_from_numpy(
+        cfg, bridge.tree_to_numpy(cpu_params), dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, XLSTM_SMALL_PROMPT),
+                           generator=torch.Generator().manual_seed(27))
+    want = generate(model, cpu_params, tokens, 8)
+    got = generate(model, gpu_params, tokens.to(dev), 8)
+    err = float((got.logits.cpu() - want.logits).abs().max())
+    check(err <= SERVE_LOGIT_TOL,
+          f"small xLSTM serve: card vs CPU logits max abs err {err}")
+    check(torch.equal(got.tokens.cpu(), want.tokens),
+          "small xLSTM serve: greedy tokens differ between card and CPU")
+    check(got.launches == {"prefill": {}, "decode": {}},
+          f"small xLSTM serve: launches {got.launches}")
+    print(f"[small] serve {cfg.name} f32 B=2 prompt {XLSTM_SMALL_PROMPT} gen "
+          f"8, card vs CPU: logits max abs err {err:.3g} (tol "
+          f"{SERVE_LOGIT_TOL:g}), greedy tokens equal, no launches",
+          flush=True)
+
+
+def xlstm_serve_path(dev, card: str) -> None:
+    """Phase 27: xLSTM-350M served at full width through the user's entry
+    point (batch 4, prompt 4096, gen 32, bf16, random weights), counts
+    reset just before and read just after (the xLSTM blocks launch no
+    kernel of the port); then one sLSTM layer's prefill alone at that
+    shape, host-timed, to size the sLSTM's per-step loop."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import recurrent
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    rec = serve(XLSTM_ARCH, batch=XLSTM_SERVE_BATCH,
+                prompt_len=XLSTM_SERVE_PROMPT, gen_len=XLSTM_SERVE_GEN,
+                reduced=False, verbose=False)
+    torch.cuda.synchronize()
+    counts = runtime.counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(rec["output_shape"] == [XLSTM_SERVE_BATCH, XLSTM_SERVE_GEN],
+          f"xLSTM serve output shape {rec['output_shape']}")
+    check(rec["logits_finite"], "xLSTM serve logits not finite")
+    check(counts == {} and rec["launches"] == {"prefill": {}, "decode": {}},
+          f"xLSTM serve launched {counts}, expected none")
+    # one sLSTM layer's prefill alone, at the serve shape
+    cfg = get_arch(XLSTM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(27)
+    p = recurrent.slstm_init(gen, cfg, dev)
+    x = torch.randn((XLSTM_SERVE_BATCH, XLSTM_SERVE_PROMPT, cfg.d_model),
+                    generator=gen, device=dev).to(getattr(torch, cfg.dtype))
+    n_slstm = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "slstm"
+                  for i in range(cfg.num_layers))
+    with torch.no_grad():
+        for _ in range(2):                    # the second is timed
+            cache = recurrent.init_slstm_cache(cfg, XLSTM_SERVE_BATCH, dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            recurrent.slstm_apply(p, x, cfg, mode="prefill",
+                                  layer_cache=cache)
+            torch.cuda.synchronize()
+            slstm_s = time.perf_counter() - t1
+    print(f"[serve] {XLSTM_ARCH} full width B={XLSTM_SERVE_BATCH} prompt "
+          f"{XLSTM_SERVE_PROMPT} gen {XLSTM_SERVE_GEN} (bf16): prefill "
+          f"{rec['prefill_s']:.4f} s ({rec['prefill_tok_per_s']:.1f} tok/s), "
+          f"decode {rec['decode_s']:.4f} s for {XLSTM_SERVE_GEN - 1} steps "
+          f"({rec['decode_tok_per_s']:.2f} tok/s), peak memory "
+          f"{peak / 2**30:.2f} GiB; {wall:.1f} s with init and warm-up; no "
+          f"kernel launches; sample {rec['output_sample']} ({card})",
+          flush=True)
+    step_us = slstm_s / XLSTM_SERVE_PROMPT * 1e6
+    print(f"[serve] {XLSTM_ARCH}: one sLSTM layer's prefill alone "
+          f"{slstm_s * 1e3:.1f} ms host ({step_us:.1f} us a time step); "
+          f"x {n_slstm} sLSTM layers = "
+          f"{n_slstm * slstm_s / rec['prefill_s']:.1%} of the prefill "
+          f"({card})", flush=True)
+    del p, x
+    torch.cuda.empty_cache()
+
+
+def xlstm_mesh_path(card: str) -> dict:
+    """Phase 28: `mesh/xlstm-smoke` at full width through
+    `experiments.run` (reduced=False, seq_len 2048, W 2, B 2, bf16) for 2
+    rounds, counts reset just before and read just after: pso_update once
+    a leaf a round and nothing else; losses and global params finite.
+    Returns the counts."""
+    import torch
+    from repro_torch.experiments import get_scenario, override, run
+    from repro_torch.kernels import runtime
+    from repro_torch.pytree import tree_leaves
+
+    spec = override(get_scenario("mesh/xlstm-smoke"), "model.reduced=false",
+                    f"model.seq_len={XLSTM_MESH_S}",
+                    f"run.rounds={XLSTM_MESH_ROUNDS}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    result = run(spec, verbose=False)
+    torch.cuda.synchronize()
+    counts = runtime.counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    rec = result.record
+    gp = result.state.global_params
+    n_leaves = len(tree_leaves(gp))
+    n_params = sum(x.numel() for x in tree_leaves(gp))
+    for t in range(XLSTM_MESH_ROUNDS):
+        print(f"[mesh] {XLSTM_ARCH} round {t + 1}: "
+              f"{rec['step_time_s'][t]:.4f} s, global loss "
+              f"{rec['global_loss'][t]:.5f}, worker losses "
+              f"{rec['worker_losses'][t]}, launches {rec['launches'][t]}",
+              flush=True)
+    print(f"[mesh] {XLSTM_ARCH} full width ({n_params} params, bf16) W="
+          f"{MESH_W} B={spec.model.per_worker_batch} S={XLSTM_MESH_S}: "
+          f"{rec['step_time_s'][-1]:.4f} s the last round, peak memory "
+          f"{peak / 2**30:.2f} GiB; {wall:.1f} s with init; launches "
+          f"{counts} ({card})", flush=True)
+    check(rec["device"] == torch.cuda.get_device_name(0),
+          f"xLSTM mesh run on {rec['device']}")
+    check(all(math.isfinite(v) for v in rec["global_loss"])
+          and all(math.isfinite(v) for r in rec["worker_losses"] for v in r),
+          "xLSTM mesh losses not finite")
+    check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(gp)),
+          "xLSTM mesh global params not finite")
+    for t in range(XLSTM_MESH_ROUNDS):
+        check(rec["launches"][t] == {"pso_update": n_leaves},
+              f"xLSTM mesh round {t + 1} launched {rec['launches'][t]}, "
+              f"expected pso_update {n_leaves} (once a leaf)")
+    check(counts == {"pso_update": XLSTM_MESH_ROUNDS * n_leaves},
+          f"xLSTM mesh run launched {counts}")
+    del result, gp
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2684,7 +2993,9 @@ def main() -> None:
     mesh_counts, mesh_spec = mesh_main_path()
     profile_mesh(mesh_spec)
     hd_bwd_rows = hd_backward_checks(dev)
-    hd80_mesh_counts = hd80_mesh_round(dev)
+    hd80_mesh_counts = depth_cut_mesh_rounds(
+        dev, HD_ARCH, HD_MESH_LAYERS, MESH_W, HD_MESH_B, HD_MESH_S, 8,
+        "hd 80", card)
 
     straggler_small_check(dev)
     straggler_counts, straggler_by_workers = straggler_main_path(card)
@@ -2700,6 +3011,19 @@ def main() -> None:
     figure_drivers(card)
     print(f"[time] phases 19-22 (F2, the sweep, per-step Eq. 8, the figure "
           f"drivers): {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+
+    t0 = time.perf_counter()
+    scan_rows = scan_bwd_checks(dev)
+    small_mesh_check(dev, RG_ARCH)
+    rg_counts = depth_cut_mesh_rounds(
+        dev, RG_ARCH, RG_MESH_LAYERS, RG_MESH_W, RG_MESH_B, RG_MESH_S, 25,
+        "hd 256", card)
+    small_xlstm_serve_check(dev)
+    xlstm_serve_path(dev, card)
+    xlstm_counts = xlstm_mesh_path(card)
+    print(f"[time] phases 23-28 (the scan's backward, RecurrentGemma-9B "
+          f"training, the xLSTM blocks): {time.perf_counter() - t0:.1f} s "
+          f"({card})", flush=True)
 
     src = {"quant_pack_ef": ("quant_pack",
                              "src/repro/kernels/quant_pack/quant_pack.py:172"),
@@ -2803,8 +3127,8 @@ def main() -> None:
         bwd, name="flash_attention_bwd (hd 256, RecurrentGemma-9B shape)",
         shape="bf16 (2, 2048, 16, 256), 1 kv head, window 2048; the 256 "
               "build (two passes, head groups)",
-        launches=0, path="none yet: RecurrentGemma-9B training waits for "
-                         "the scan's backward",
+        launches=rg_counts["flash_attention_bwd"],
+        path="RecurrentGemma-9B training, depth cut to 3 layers (phase 25)",
         f32_ms=None, library_fwd_bwd_ms=None, **hd_bwd_rows["hd256"]))
     # this slice: on each kernel's first row, its launches (at every
     # shape) in the int4 straggler run, the int4 population run and the
@@ -2841,6 +3165,29 @@ def main() -> None:
         name="pso_update (per-step Eq. 8, CNN5 fc1 leaf)",
         shape="f32, C=50 x (784, 32); 10 leaves a step, 32 steps a round",
         launches=step_counts["pso_update"], **step_row))
+    # this slice: the scan's backward and the scan at RecurrentGemma-9B's
+    # training shape (their launches in phase 25's two rounds), and each
+    # kernel's launches in the training and xLSTM mesh runs
+    for k in kernels:
+        if " (" not in k["name"]:
+            k["launches_rg_train"] = rg_counts.get(k["name"], 0)
+            k["launches_xlstm_mesh"] = xlstm_counts.get(k["name"], 0)
+    scan = next(k for k in kernels if k["name"] == "rglru_scan")
+    kernels.append(dict(
+        {key: v for key, v in scan.items()
+         if not key.startswith("launches_")},
+        name="rglru_scan (RecurrentGemma-9B training shape)",
+        shape="f32 (2, 2048, 4096)", launches=rg_counts["rglru_scan"],
+        path="RecurrentGemma-9B training, depth cut to 3 layers (phase 25)",
+        **scan_rows["rglru_scan"]))
+    kernels.append(dict(
+        name="rglru_scan_bwd", route="cuda",
+        source="src/repro_torch/csrc/rglru_scan_bwd.cu",
+        replaces="src/repro/models/recurrent.py:112 (XLA autodiff of "
+                 "associative_scan; no TPU kernel)",
+        launches=rg_counts["rglru_scan_bwd"], shape="f32 (2, 2048, 4096)",
+        path="RecurrentGemma-9B training, depth cut to 3 layers (phase 25)",
+        check="pass", **scan_rows["rglru_scan_bwd"]))
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(card, flush=True)

@@ -2,6 +2,8 @@
 // h_t = a_t * h_{t-1} + b_t over the sequence, for every (batch, channel)
 // lane, starting from h0.
 //
+// Its backward is csrc/rglru_scan_bwd.cu.
+//
 // Replaces the Pallas TPU kernel repro/kernels/rglru_scan/rglru_scan.py:
 //   rglru_scan_kernel  <- rglru_scan_raw (_kernel)
 //

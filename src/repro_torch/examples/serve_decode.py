@@ -1,10 +1,11 @@
 """Serving example: batched prefill + decode over the architecture
-families the port serves — dense GQA (SmolLM-360M), the RG-LRU
-recurrence with local attention (RecurrentGemma-9B) and head dim 80
-(StableLM-3B) — on reduced configs (the counterpart of the root
-`examples/serve_decode.py`, whose xLSTM and MoE families the port does
-not serve yet). The same `launch/serve.py` path drives the full configs
-on the card (`--full`).
+families the port serves — dense GQA (SmolLM-360M), the mLSTM/sLSTM
+recurrence (xLSTM-350M, an O(1) decode state), the RG-LRU recurrence
+with local attention (RecurrentGemma-9B) and head dim 80 (StableLM-3B)
+— on reduced configs (the counterpart of the root
+`examples/serve_decode.py`, whose MoE family the port does not serve
+yet). The same `launch/serve.py` path drives the full configs on the
+card (`--full`).
 
     python -m repro_torch.examples.serve_decode [--device cpu] [--full]
 """
@@ -13,6 +14,7 @@ import argparse
 from repro_torch.launch.serve import serve
 
 ARCHS = [("smollm-360m", "dense GQA"),
+         ("xlstm-350m", "mLSTM/sLSTM recurrence -> O(1) decode state"),
          ("recurrentgemma-9b", "RG-LRU recurrence + local attention"),
          ("stablelm-3b", "MHA at head dim 80")]
 

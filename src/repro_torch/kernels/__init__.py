@@ -12,7 +12,8 @@ device dispatch, launch count) and a plain `ref.py`:
   flash_attention
               online-softmax attention (causal, sliding window, query
               offset, valid kv length, GQA), the serve path's prefill
-  rglru_scan  the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t
+  rglru_scan  the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t, and
+              its backward (the reverse walk)
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises (`runtime`). Kernels build with nvcc on first use.

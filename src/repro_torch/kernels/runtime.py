@@ -41,7 +41,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("quant_pack", "wire_agg", "flash_attention", "flash_attention_bwd",
-           "rglru_scan", "pso_update")
+           "rglru_scan", "rglru_scan_bwd", "pso_update")
 
 # launches of each CUDA kernel since the last reset_counts(); a wrapper
 # adds one exactly where it launches its kernel (plain versions on CPU

@@ -1,6 +1,8 @@
 """The transformer stack of the port, as the JAX package's
 `models/transformer.py`, for the block kinds attn (full causal), swa
-(sliding window) and rglru (RecurrentGemma) with the gated-MLP mixer.
+(sliding window), rglru (RecurrentGemma) and xLSTM's mlstm and slstm.
+Attention and rglru layers take the gated-MLP channel mixer when
+`d_ff` is set; the xLSTM blocks embed their own mixers and take none.
 
 The param and cache trees are the reference's: the `block_pattern`
 repeats `num_layers // P` times, so `groups` leaves carry a leading
@@ -23,12 +25,12 @@ activations are dropped after the forward and recomputed in the
 backward from the group's (B, S, D) input, the counterpart of the
 reference's `jax.checkpoint(..., nothing_saveable)` around its scan
 body. Attention is differentiable through the flash kernels' autograd
-Function; the RG-LRU scan is forward-only (it raises when a gradient is
-asked for), so an rglru model does not train yet.
+Function, and the RG-LRU scan through its own (the scan's backward
+kernel); the xLSTM blocks are plain PyTorch, differentiated by autograd.
 
 Not ported yet (a later slice; each raises NotImplementedError): MoE,
-cross-attention and the encoder, `tokens+prefix`/`embeddings` inputs,
-and the mLSTM and sLSTM blocks.
+cross-attention and the encoder, and the `tokens+prefix`/`embeddings`
+inputs.
 """
 from __future__ import annotations
 
@@ -38,15 +40,17 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, RGLRU, SWA, ArchConfig
+from repro_torch.configs.base import (ATTN, MLSTM, RGLRU, SLSTM, SWA,
+                                      ArchConfig)
 from repro_torch.models import layers, recurrent
 from repro_torch.models.layers import cdtype
 
 PyTree = Any
-# where the missing blocks stand in ROADMAP.md's queue 1: the xLSTM
-# blocks, then MoE, cross-attention and the other inputs
+# where the missing features stand in ROADMAP.md's queue 1: MoE,
+# cross-attention and the encoder, and the other inputs
 _LATER = ("is not ported yet (a later slice of the port: ROADMAP queue 1, "
-          "'The xLSTM blocks' and 'MoE, then cross-attention')")
+          "'MoE, then cross-attention')")
+_KINDS = (ATTN, SWA, RGLRU, MLSTM, SLSTM)
 
 
 def _unsupported(cfg: ArchConfig) -> list[str]:
@@ -58,8 +62,15 @@ def _unsupported(cfg: ArchConfig) -> list[str]:
     if cfg.input_mode != "tokens":
         out.append(f"input_mode {cfg.input_mode!r}")
     out += [f"block kind {k!r}" for k in dict.fromkeys(cfg.block_pattern)
-            if k not in (ATTN, SWA, RGLRU)]
+            if k not in _KINDS]
     return out
+
+
+def _takes_mlp(cfg: ArchConfig, block_kind: str) -> bool:
+    """The reference's `_mixer_kind` rule: the xLSTM blocks embed their
+    own mixers and take none whatever d_ff is; the other blocks take the
+    gated MLP when d_ff is set (MoE, its other mixer, is not ported)."""
+    return block_kind not in (MLSTM, SLSTM) and bool(cfg.d_ff)
 
 
 def _index(tree: PyTree, i: int) -> PyTree:
@@ -104,9 +115,13 @@ def layer_init(gen, cfg: ArchConfig, block_kind: str, device,
         p["temporal"] = layers.attention_init(gen, cfg, device, lead)
     elif block_kind == RGLRU:
         p["temporal"] = recurrent.rglru_init(gen, cfg, device, lead)
+    elif block_kind == MLSTM:
+        p["temporal"] = recurrent.mlstm_init(gen, cfg, device, lead)
+    elif block_kind == SLSTM:
+        p["temporal"] = recurrent.slstm_init(gen, cfg, device, lead)
     else:
         raise NotImplementedError(f"block kind {block_kind!r} {_LATER}")
-    if cfg.d_ff:
+    if _takes_mlp(cfg, block_kind):
         p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg, device,
                                    lead)
     return p
@@ -123,6 +138,12 @@ def layer_apply(p: PyTree, x: torch.Tensor, cfg: ArchConfig,
                                        layer_cache=tcache, window=window)
     elif block_kind == RGLRU:
         y, nc = recurrent.rglru_apply(p["temporal"], x, cfg, mode=mode,
+                                      layer_cache=tcache)
+    elif block_kind == MLSTM:
+        y, nc = recurrent.mlstm_block_apply(p["temporal"], x, cfg,
+                                            mode=mode, layer_cache=tcache)
+    elif block_kind == SLSTM:
+        y, nc = recurrent.slstm_apply(p["temporal"], x, cfg, mode=mode,
                                       layer_cache=tcache)
     else:
         raise NotImplementedError(f"block kind {block_kind!r} {_LATER}")
@@ -142,6 +163,12 @@ def init_layer_cache(cfg: ArchConfig, block_kind: str, batch: int,
     if block_kind == RGLRU:
         return {"temporal": recurrent.init_rglru_cache(cfg, batch, dtype,
                                                        device, lead)}
+    if block_kind == MLSTM:
+        return {"temporal": recurrent.init_mlstm_cache(cfg, batch, device,
+                                                       lead)}
+    if block_kind == SLSTM:
+        return {"temporal": recurrent.init_slstm_cache(cfg, batch, device,
+                                                       lead)}
     raise NotImplementedError(f"block kind {block_kind!r} {_LATER}")
 
 

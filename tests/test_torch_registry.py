@@ -1,8 +1,7 @@
 """Registry completeness: every scenario the JAX package registers runs one
 round in the port on the CPU, at a reduced size, and gives finite losses
-and the record keys of its kind; `mesh/xlstm-smoke` raises
-NotImplementedError for its xLSTM blocks (ROADMAP queue 1, the xLSTM
-item). The full-size registered runs are the card's (chip_smoke.py).
+and the record keys of its kind (`mesh/xlstm-smoke` included). The
+full-size registered runs are the card's (chip_smoke.py).
 
 Reduced size: paper scenarios 4 workers (a population of 1,000 for the
 fleets; 8 workers with 1 attacker for the Byzantine ones, so a trimmed
@@ -28,7 +27,6 @@ PAPER_KEYS = {"algorithm", "case", "dataset", "model", "rounds",
               "final_acc", "best_acc", "total_uploaded_params",
               "total_bytes_up", "total_bytes_down", "total_airtime_s",
               "total_energy_j", "compression_ratio"}
-UNPORTED = {"mesh/xlstm-smoke"}
 
 
 def _reduced(name):
@@ -51,7 +49,7 @@ def test_registry_is_the_references():
     assert list_scenarios() == jlist_scenarios()
 
 
-@pytest.mark.parametrize("name", sorted(set(list_scenarios()) - UNPORTED))
+@pytest.mark.parametrize("name", sorted(list_scenarios()))
 def test_every_scenario_runs_one_round(name, monkeypatch):
     small_eval_sets(monkeypatch)
     spec = _reduced(name)
@@ -64,9 +62,3 @@ def test_every_scenario_runs_one_round(name, monkeypatch):
                 <= spec.data.num_workers)
     else:
         assert rec["steps"] == 1 and len(rec["worker_losses"][0]) == 2
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_scenario_raises(name):
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        run(_reduced(name), verbose=False, device="cpu")

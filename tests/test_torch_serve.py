@@ -1,6 +1,7 @@
-"""The port's serve path (layers, RG-LRU, Transformer, serve) against the
-JAX package on the CPU, on reduced configs in f32 from the same params
-(JAX init -> numpy -> `bridge.transformer_params_from_numpy`).
+"""The port's serve path (layers, RG-LRU, the Transformer with its
+xLSTM blocks too, serve) against the JAX package on the CPU, on reduced
+configs in f32 from the same params (JAX init -> numpy ->
+`bridge.transformer_params_from_numpy`).
 
 Tolerances: layers within 2e-5 max abs (f32, the two frameworks sum
 matmuls in different orders); model logits within 5e-4 max abs and
@@ -186,6 +187,7 @@ MODELS = {
     # flash kernels run in their 128 build
     "stablelm-3b": {"head_dim": 80},
     "starcoder2-7b": {"window_size": 8},     # ring wraps several times
+    "xlstm-350m": {},                        # mlstm, slstm
 }
 
 
@@ -259,7 +261,7 @@ def test_bridge_checks_paths_shapes_dtypes():
 
 
 def test_unported_features_raise():
-    for arch in ("qwen3-moe-30b-a3b", "xlstm-350m", "seamless-m4t-large-v2",
+    for arch in ("qwen3-moe-30b-a3b", "seamless-m4t-large-v2",
                  "llava-next-34b"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Transformer(get_arch(arch).reduced())
