@@ -215,20 +215,66 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      (reduced=false, seq_len 2048, W 2, B 2, bf16) for 2 rounds: losses
      and global params finite, pso_update once a leaf a round and no
      other launch; seconds a round and peak memory;
- 29. prints the card line, the `kernels` JSON line (each row with its
+ 29. the forward at this slice's shapes against its plain version on the
+     card, each asserting its route (the tensor-core forward): Qwen3-MoE's
+     prefill (B 4, S 4096, 32 heads over 4, hd 128, causal; the 128
+     build), SeamlessM4T's encoder (B 4, S 4096, 16 heads, MHA, hd 64, no
+     mask), its cross decode (one query over 4096 frames, no mask) and
+     ragged GQA cases with 7 query heads a kv head (non-causal with Sq !=
+     Sk and kv_len < Sk; causal with a query offset); device, eager,
+     plain and library (SDPA) times and the bounds of the first three;
+     the training forward and the backward at Qwen3's training shape (B
+     2, S 2048, 32 over 4, hd 128, causal; the 128 build) and at a ragged
+     non-causal GQA shape, against the plain versions and autograd, the
+     former timed beside SDPA's backward alone;
+ 30. small MoE serves: reduced qwen3-moe-30b-a3b and arctic-480b in f32,
+     at capacity factor 1.25 (decode drops picks) and dropless, on the
+     card against the CPU from the same params: logits, greedy tokens;
+ 31. Qwen3-MoE-30B-A3B served at full width and depth (48 layers,
+     30,220,746,752 params in the reference's count, random bf16 weights
+     from a seed) through `launch.serve.serve`, batch 4, prompt 4096, gen
+     32, counts reset just before and read just after: each prefill
+     launches the hd-128 forward 48 times, decode none; prefill and
+     decode tok/s and peak memory; then one more prefill profiled: GEMMs
+     (the experts' bmm included), flash, MoE's sort/scatter/gather and
+     the rest;
+ 32. Arctic-480B at full width with the depth cut to 2 layers (one card
+     holds two of its 27.2 GB layers), served the same way through the
+     serve module's `generate`: the forward twice a prefill;
+ 33. small encoder-decoder and prefix serves: reduced
+     seamless-m4t-large-v2 (frames encoded into the cache) and
+     llava-next-34b (a prefix before the prompt) in f32, card against
+     CPU, as phase 30;
+ 34. SeamlessM4T-large-v2 served at full width and depth (frames (4,
+     4096, 1024), prompt 4096, gen 32): per prefill 24 non-causal encoder,
+     24 causal self- and 24 non-causal cross-attention forwards (the
+     encoder and the cross K/V are in the timed prefill), per decode step
+     the 24 cross forwards (Sq 1 over the memory, through the kernel);
+ 35. LLaVA-NeXT-34B served at full width and depth (a 2880-token prefix
+     and prompt 4096, gen 32, batch 4; 67.9 GB of weights): the forward
+     once a layer a prefill;
+ 36. Qwen3-MoE training at full width with the depth cut to 2 layers
+     (W 1, B 2, S 2048, bf16) through `Transformer.loss` (its aux loss
+     included) under the mesh engine, as phase 25: per round the hd-128
+     forward 2 x 4 and backward 2 x 1, pso_update once a leaf, the _f32
+     counters never; losses, global params and the aux finite, the aux
+     > 0; seconds a round and peak memory;
+ 37. prints the card line, the `kernels` JSON line (each row with its
      share of bound = bound_ms / ms; each kernel's first row with its
      launches in the int4 straggler run, the int4 population run, the
      mesh straggler run, the obs run, the mesh checkpoint run, the
      sweep's cells (phase 20), the per-step Eq.-8 run, phase 25's
-     training rounds and phase 28's xLSTM rounds; each
-     flash row with its cores,
+     training rounds, phase 28's xLSTM rounds and phases 31-36's runs;
+     each flash row with its cores,
      the CUDA-core kernel's and the f32 path's times; a row of the
      forward at the mesh shape, rows of quant_pack_ef, wire_agg and
      dequant_unpack at the large leaf, of quant_pack and dequant_unpack
      at the straggler uplink's int4 C = 50, of the forward and backward
      at hd 80, of the backward at hd 256 (its launches in phase 25), of
      pso_update at the per-step Eq. 8's CNN5 leaf, of rglru_scan at the
-     training shape and of rglru_scan_bwd) and, last, the ok line.
+     training shape, of rglru_scan_bwd, of the forward at hd 128 (Qwen3),
+     non-causal (SeamlessM4T's encoder) and at the cross decode, and of
+     the backward at hd 128) and, last, the ok line.
 
 Tolerances: payloads, scales, decodes and the wire_agg median bitwise;
 the obs stream's round rows and the restored checkpoint bitwise;
@@ -254,9 +300,11 @@ against its plain version, within 2 f32 ulps an element against
 autograd of the plain loop (expected 0: the same rounded products and
 sums; the ulps leave room for autograd adding a step's two gradient
 terms in the other order, which is exact for two terms). The small
-training check (phase 24): phase 10's. The small xLSTM serve (phase 26):
-logits within 5e-4, greedy tokens equal. Every timing line of phases
-13-28 carries the card's name and power limit.
+training check (phase 24): phase 10's. The small xLSTM serve (phase 26)
+and the small MoE, encoder-decoder and prefix serves (phases 30 and 33):
+logits within 5e-4, greedy tokens equal. Phase 29's flash cases: phases
+6 and 9's rules. Every timing line of phases 13-28 and 31-36 carries the card's
+name and power limit.
 """
 import json
 import math
@@ -331,6 +379,18 @@ def bound_ms(nbytes: float, ops: float,
              ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# words in the names of the cuBLAS/CUTLASS GEMM kernels (a profile's
+# GEMM share)
+GEMM_WORDS = ("gemm", "gemv", "xmma", "cutlass", "sm90_", "nvjet")
+
+
+def dev_us(e):
+    """A profiler row's own device time, in µs (the field's name moved
+    across torch versions)."""
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
 
 
 def ulp(x):
@@ -613,10 +673,6 @@ def profile_round(spec) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
     names = ("LocalUpdate", "ScoreSelect", "Uplink", "Aggregate",
              "Downlink", "BestTracking")
     # device-side rows only (kernels, copies): the host ops' rows repeat
@@ -749,8 +805,40 @@ def cuda_core_backward(q, k, v, out, do, lse, causal, window, q_offset):
     return dq, dk, dv
 
 
-def flash_case_check(dev, case, g):
-    """Kernel against plain on one case; returns (max_abs_err, inputs)."""
+def attention_f64(q, k, v, *, causal, window, q_offset, kv_len):
+    """`attention_ref`'s dense masked softmax with its sums in f64 (one
+    batch row and one kv head's group of q heads at a time, so that the
+    f64 scores of LLaVA's 6976-token prefill fit beside the inputs;
+    differentiable), in f64: the plain version's answer without its f32
+    rounding."""
+    import torch
+    from repro_torch.kernels.flash_attention import ref as fref
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    mask = fref.attention_mask(Sq, Sk, causal=causal, window=window,
+                               q_offset=q_offset,
+                               kv_len=Sk if kv_len is None else kv_len,
+                               device=q.device)
+    G = H // K
+    rows = []
+    for b in range(B):
+        heads = []
+        for j in range(K):
+            qd = q[b, :, j * G:(j + 1) * G].double().transpose(0, 1)
+            kd, vd = (x[b, :, j].double() for x in (k, v))
+            s = (qd @ kd.T / math.sqrt(hd)).masked_fill(~mask, -math.inf)
+            p = torch.softmax(s, dim=-1).nan_to_num(0.0)   # no key: 0
+            heads.append((p @ vd).transpose(0, 1))
+            del s, p
+        rows.append(torch.cat(heads, dim=1))
+    return torch.stack(rows)
+
+
+def flash_case_check(dev, case, g, exact: bool = False):
+    """Kernel against plain on one case; returns (max_abs_err, inputs).
+    With `exact` the plain version runs on the inputs cast to f64 (its
+    sums in f64), for rows of thousands of unmasked keys, where the f32
+    plain version's own sums miss the 2-ulp rule at outputs near 0."""
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import ops as fops
@@ -767,10 +855,14 @@ def flash_case_check(dev, case, g):
     route = flash_route(dtype, hd)
     check(runtime.counts() == {route: 1}, f"flash_attention {label}: "
           f"launched {runtime.counts()}, expected {{{route!r}: 1}}")
-    want = fref.attention_ref(q, k, v, causal=causal, window=window,
-                              q_offset=Sk - Sq if q_offset is None
-                              else q_offset, kv_len=kv_len)
+    plain = attention_f64 if exact else fref.attention_ref
+    want = plain(q, k, v, causal=causal, window=window,
+                 q_offset=Sk - Sq if q_offset is None else q_offset,
+                 kv_len=kv_len)
     torch.cuda.synchronize()
+    if exact:
+        want = want.float()
+        label = f"{label} (against the plain version in f64)"
     err, amax, rule = flash_out_check(label, got, want)
     if kv_len is not None and window:
         pos = q_offset + torch.arange(Sq, device=dev)
@@ -974,10 +1066,6 @@ def profile_serve(dev) -> None:
             wall_ms = (time.perf_counter() - t0) * 1e3
         return out, prof, wall_ms
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
     def device_rows(prof):
         return sorted((e for e in prof.key_averages()
                        if str(e.device_type).endswith("CUDA")
@@ -987,7 +1075,6 @@ def profile_serve(dev) -> None:
         return sum(dev_us(e) for e in rows
                    if any(w in e.key.lower() for w in words)) / 1e3
 
-    gemm_words = ("gemm", "gemv", "xmma", "cutlass", "sm90_", "nvjet")
     with torch.no_grad():
         cache = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_GEN, dev)
         (logits, cache), prof, wall_ms = profiled(
@@ -1001,7 +1088,7 @@ def profile_serve(dev) -> None:
     total = sum(dev_us(e) for e in rows) / 1e3
     flash = ms_of(rows, "fwd_tc_kernel", "flash_attention_kernel")
     scan = ms_of(rows, "rglru_scan_kernel")
-    gemm = ms_of(rows, *gemm_words)
+    gemm = ms_of(rows, *GEMM_WORDS)
     print(f"[profile] one full-width prefill (B={SERVE_BATCH} S="
           f"{SERVE_PROMPT}): wall {wall_ms:.1f} ms (profiler on), device "
           f"busy {total:.1f} ms ({100 * total / wall_ms:.1f}%): GEMMs "
@@ -1018,7 +1105,7 @@ def profile_serve(dev) -> None:
     print(f"[profile] one decode step (B={SERVE_BATCH}): wall "
           f"{dwall_ms:.1f} ms (profiler on), device busy {total:.2f} ms "
           f"({100 * total / dwall_ms:.1f}%), GEMMs "
-          f"{ms_of(rows, *gemm_words):.2f} ms; {sum(e.count for e in rows)} "
+          f"{ms_of(rows, *GEMM_WORDS):.2f} ms; {sum(e.count for e in rows)} "
           f"device ops, {aten} aten calls (nested included)", flush=True)
     for e in rows[:6]:
         print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
@@ -1104,11 +1191,16 @@ def pso_checks(dev):
     return out
 
 
-def flash_bwd_case(dev, case, g):
+def flash_bwd_case(dev, case, g, exact: bool = False):
     """The training forward against the plain one and the backward kernel
     against `attention_bwd_ref` and autograd of `attention_ref` on one
     case; returns (max_abs_err vs the plain backward, the inputs, the
-    forward's max_abs_err)."""
+    forward's max_abs_err). With `exact` the training forward is held to
+    `attention_f64` (as flash_case_check); the backward is always held to
+    `attention_bwd_ref`, which forms rowsum(dO * O) from the kernel's
+    bf16 output as the kernel does (an f64 autograd from the exact output
+    misses dq and dk by up to ~800 bf16 ulps at gradients near 0, in the
+    plain f32 version and the kernel alike)."""
     import torch
     from repro_torch.kernels import runtime
     from repro_torch.kernels.flash_attention import ops as fops
@@ -1132,9 +1224,12 @@ def flash_bwd_case(dev, case, g):
     check(runtime.counts() == {route: 1}, f"flash forward {label}: "
           f"launched {runtime.counts()}, expected {{{route!r}: 1}}")
     want, want_lse = fref.attention_ref(q, k, v, **kw, return_lse=True)
+    if exact:
+        want = attention_f64(q, k, v, **kw).float()
     torch.cuda.synchronize()
-    fwd_err, amax, rule = flash_out_check(f"{label} (training forward)",
-                                          out, want)
+    fwd_err, amax, rule = flash_out_check(
+        f"{label} (training forward{', f64 plain' if exact else ''})", out,
+        want)
     fin = torch.isfinite(want_lse)
     check(torch.equal(torch.isfinite(lse), fin)
           and bool((lse[~fin] == want_lse[~fin]).all()),
@@ -1493,10 +1588,6 @@ def profile_mesh(spec) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
     names = ("LocalUpdate", "ScoreSelect", "Uplink", "Aggregate",
              "Downlink", "BestTracking")
     rows = sorted((e for e in prof.key_averages()
@@ -1508,7 +1599,7 @@ def profile_mesh(spec) -> None:
                    if any(w in e.key.lower() for w in words)) / 1e3
 
     busy = sum(dev_us(e) for e in rows) / 1e3
-    gemm = ms_of("gemm", "gemv", "xmma", "cutlass", "sm90_", "nvjet")
+    gemm = ms_of(*GEMM_WORDS)
     fwd = ms_of("fwd_tc_kernel", "flash_attention_kernel")
     bwd = ms_of("dkdv_tc_kernel", "dq_tc_kernel", "prep_tc_kernel",
                 "dkdv_kernel", "dq_kernel", "dot_kernel")
@@ -1754,7 +1845,8 @@ def depth_cut_mesh_rounds(dev, arch: str, layers: int, W: int, B: int,
     `seed`, the `mesh/smollm-smoke` scenario's algorithm and wire. A
     warm-up round, then the timed round; counts reset just before the
     two and read just after, and held to `mesh_launches_per_round`
-    twice. Returns the counts."""
+    twice. With MoE, also the aux loss of the trained global params on
+    the last evaluation batch, finite and > 0. Returns the counts."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -1800,6 +1892,14 @@ def depth_cut_mesh_rounds(dev, arch: str, layers: int, W: int, B: int,
     peak = torch.cuda.max_memory_allocated()
     want = {k: 2 * n for k, n in mesh_launches_per_round(
         cfg, len(tree_leaves(params)), W).items()}
+    if cfg.num_experts:
+        # MoE: the aux loss (in every loss above) of the trained global
+        # params on the last evaluation batch, after the counts
+        with torch.no_grad():
+            aux = float(model.forward(state.global_params, eb)[1])
+        check(math.isfinite(aux) and aux > 0,
+              f"{arch} mesh round: MoE aux loss {aux}, expected finite > 0")
+        note = f"{note}; MoE aux loss {aux:.6g}"
     print(f"[mesh] {arch} full width, depth cut to {layers} "
           f"({n_params} params, bf16, {note}) W={W} B={B} S={S}: round "
           f"{times[1]:.4f} s after a {times[0]:.4f} s warm-up "
@@ -2920,6 +3020,361 @@ def xlstm_mesh_path(card: str) -> dict:
     return counts
 
 
+# -- this slice: MoE, the encoder with cross-attention, prefix inputs ------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"       # 48 layers, 128 experts top 8, hd 128
+ARCTIC_ARCH = "arctic-480b"          # 128 experts top 2 + a dense MLP
+ENC_ARCH = "seamless-m4t-large-v2"   # 24 encoder + 24 cross decoder layers
+VLM_ARCH = "llava-next-34b"          # a 2880-token prefix, hd 128, 56 / 8
+BIG_BATCH, BIG_PROMPT, BIG_GEN = 4, 4096, 32
+# Arctic's 35 layers hold 952 GB of bf16 weights; one layer is 27.2 GB
+# (128 experts of 3 x 7168 x 4864, the dense MLP, attention), so two
+# layers (54.9 GB with the embedding) are what one 80 GB card serves
+ARCTIC_LAYERS = 2
+# Qwen3 training: two layers (1,557,397,504 params) at W 1: the engine's
+# per-worker state (bf16 params, velocity and bests, f32 error-feedback
+# residuals) of the 48-layer model would not fit one card
+MOE_MESH_LAYERS, MOE_MESH_W, MOE_MESH_B, MOE_MESH_S = 2, 1, 2, 2048
+# the forward at this slice's shapes: Qwen3's prefill (hd 128, 32 heads
+# over 4, causal), SeamlessM4T's encoder (hd 64, MHA, no mask) and its
+# cross-attention at decode (one query over the 4096-frame memory), each
+# timed (TIMED_FWD); then, checked only, the other prefill shapes the
+# served models launch: Arctic's (56 heads over 8, causal), LLaVA's
+# (the same heads over 2880 prefix + 4096 prompt tokens) and SeamlessM4T's
+# decoder self-attention (MHA, causal); then ragged non-causal and causal
+# GQA cases with 7 query heads a kv head, Sq != Sk and kv_len < Sk
+NEW_FWD_CASES = [
+    ("hd128 gqa", 4, 4096, 4096, 32, 4, 128, "bfloat16", True, 0, None,
+     None),
+    ("non-causal", 4, 4096, 4096, 16, 16, 64, "bfloat16", False, 0, None,
+     None),
+    ("cross decode", 4, 1, 4096, 16, 16, 64, "bfloat16", False, 0, None,
+     None),
+    ("arctic prefill", 4, 4096, 4096, 56, 8, 128, "bfloat16", True, 0, None,
+     None),
+    ("llava prefill", 4, 6976, 6976, 56, 8, 128, "bfloat16", True, 0, None,
+     None),
+    ("seamless self", 4, 4096, 4096, 16, 16, 64, "bfloat16", True, 0, None,
+     None),
+    ("non-causal ragged", 2, 333, 1000, 14, 2, 128, "bfloat16", False, 0,
+     None, 900),
+    ("hd128 gqa7 ragged", 2, 300, 1000, 14, 2, 128, "bfloat16", True, 0,
+     700, 800),
+]
+# the backward at Qwen3's training shape (B 2, S 2048, 32 over 4, causal;
+# the 128 build), and a ragged non-causal GQA case (the encoder's)
+NEW_BWD_CASES = [
+    ("hd128", 2, 2048, 2048, 32, 4, 128, "bfloat16", True, 0, None, None),
+    ("hd128 non-causal ragged", 2, 333, 1000, 14, 2, 128, "bfloat16", False,
+     0, None, 900),
+]
+TIMED_FWD = ("hd128 gqa", "non-causal", "cross decode")
+
+
+def new_forward_checks(dev) -> dict:
+    """Phase 29: the forward at this slice's shapes against the plain
+    version, each asserting its route (bf16 at hd 64 and 128: the
+    tensor-core forward); device, eager, plain and library (SDPA with the
+    same mask, kv heads expanded outside the timing) times and the bound
+    of the TIMED_FWD cases. Returns {label: row}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    rows = {}
+    for case in NEW_FWD_CASES:
+        # against the plain version in f64: at 4096 unmasked keys the f32
+        # plain version's own sums miss 2 bf16 ulps at outputs near 0
+        err, (q, k, v, kw) = flash_case_check(dev, case, g, exact=True)
+        if case[0] not in TIMED_FWD:
+            rows[case[0]] = {"max_abs_err": err}
+            del q, k, v
+            torch.cuda.empty_cache()
+            continue
+        B, Sq, H, hd = q.shape
+        Sk, K, causal = k.shape[1], k.shape[2], kw["causal"]
+        pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        bnd, by = bound_ms(nbytes, 4 * hd * pairs, BF16_OPS_PER_S)
+        qt = q.transpose(1, 2)
+        kt, vt = (x.transpose(1, 2).repeat_interleave(H // K, 1).contiguous()
+                  for x in (k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        lib_err = float((lib.transpose(1, 2).float() - fref.attention_ref(
+            q, k, v, causal=causal).float()).abs().max())
+        del lib
+        reps = 50 if Sq == 1 else 5
+        t = {"ms": graph_ms(lambda: fops.flash_attention(q, k, v, **kw),
+                            reps),
+             "eager_ms": time_ms(lambda: fops.flash_attention(q, k, v, **kw),
+                                 reps),
+             "plain_ms": time_ms(lambda: fref.attention_ref(
+                 q, k, v, causal=causal), 2),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=causal), reps)}
+        print(f"[time] flash_attention {case[0]} (B={B} Sq={Sq} Sk={Sk} H={H} "
+              f"K={K} hd={hd} causal={causal} bf16, "
+              f"{flash_route(case[7], hd)}, build {fops.tc_head_dim(hd)}): "
+              f"device {t['ms']:.4f} ms/launch, eager call "
+              f"{t['eager_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, library "
+              f"(SDPA, {'causal' if causal else 'no mask'}) "
+              f"{t['library_ms']:.4f} ms (max |SDPA - plain| {lib_err:.3g}); "
+              f"bound {bnd:.4g} ms ({by}; {pairs} pairs at 4 hd operations, "
+              f"{nbytes} B)", flush=True)
+        rows[case[0]] = dict(t, max_abs_err=err, bound_ms=bnd, bound_by=by)
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def new_backward_checks(dev) -> dict:
+    """Phase 29: the training forward and the backward at Qwen3-MoE's
+    training shape (the 128 build) and a ragged non-causal GQA case,
+    against the plain versions and autograd; the former timed beside
+    SDPA's backward alone. Returns its row (the ragged case's error
+    under `ragged_max_abs_err`)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(30)
+    row = {}
+    for case in NEW_BWD_CASES:
+        # the ragged non-causal case's training forward against the plain
+        # version in f64 (as phase 29's forward cases: a row sees 900 keys)
+        err, inputs, _ = flash_bwd_case(dev, case, g,
+                                        exact="non-causal" in case[0])
+        if "ragged" in case[0]:
+            row["ragged_max_abs_err"] = err
+        else:
+            row.update(time_flash_bwd(case[0], *inputs), max_abs_err=err)
+        del inputs
+        torch.cuda.empty_cache()
+    return row
+
+
+def small_family_check(dev, arch: str, seed: int, **overrides) -> dict:
+    """Phases 30 and 33: a reduced config in f32 (with `overrides`) on the
+    card against the CPU from the same params (through the bridge) and
+    the same request (tokens, and the prefix or frames it takes), prompt
+    24, gen 8: logits within SERVE_LOGIT_TOL, greedy tokens equal.
+    Returns the card's launches."""
+    import dataclasses
+    import torch
+    from repro_torch import bridge
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate, make_request_batch
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32",
+                              **overrides)
+    model = Transformer(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(seed), "cpu")
+    gpu_params = bridge.transformer_params_from_numpy(
+        cfg, bridge.tree_to_numpy(cpu_params), dev)
+    req = make_request_batch(torch.Generator().manual_seed(seed + 1), cfg, 2,
+                             24, "cpu")
+    tokens = req.pop("tokens")
+    want = generate(model, cpu_params, tokens, 8, **req)
+    got = generate(model, gpu_params, tokens.to(dev), 8,
+                   **{k: x.to(dev) for k, x in req.items()})
+    err = float((got.logits.cpu() - want.logits).abs().max())
+    what = f"small {cfg.name} serve {overrides or ''}"
+    check(err <= SERVE_LOGIT_TOL, f"{what}: card vs CPU logits max abs err "
+                                  f"{err}")
+    check(torch.equal(got.tokens.cpu(), want.tokens),
+          f"{what}: greedy tokens differ between card and CPU")
+    check(want.launches == {"prefill": {}, "decode": {}},
+          f"{what}: the CPU launched {want.launches}")
+    print(f"[small] serve {cfg.name} f32 {overrides or ''} B=2 prompt 24 "
+          f"gen 8 ({', '.join(req) or 'tokens only'}), card vs CPU: logits "
+          f"max abs err {err:.3g} (tol {SERVE_LOGIT_TOL:g}), greedy tokens "
+          f"equal, card launches {got.launches}", flush=True)
+    return got.launches
+
+
+def big_serve(dev, card: str, arch: str, seed: int, prefill_launches: int,
+              decode_launches: int, layers: int = 0):
+    """Phases 31, 32, 34 and 35: `arch` served at full width (the depth cut to
+    `layers` where given) from random bf16 weights drawn from `seed`,
+    batch 4, prompt 4096, gen 32: through `launch.serve.serve` with the
+    params given, or with a depth cut through the serve module's
+    `generate` (warm-up pass and timed pass, as `serve` runs them).
+    Counts reset just before and read just after; one pass's prefill
+    launches `prefill_launches` flash forwards (encoder included), each
+    decode step `decode_launches`. Returns (record, counts, model,
+    params)."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.serve import generate, make_request_batch, serve
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.pytree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_arch(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = Transformer(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    weights = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    runtime.reset_counts()
+    t0 = time.perf_counter()
+    if not layers:
+        rec = serve(arch, batch=BIG_BATCH, prompt_len=BIG_PROMPT,
+                    gen_len=BIG_GEN, reduced=False, params=params, seed=seed,
+                    verbose=False)
+    else:
+        req = make_request_batch(gen, cfg, BIG_BATCH, BIG_PROMPT, dev)
+        tokens = req.pop("tokens")
+        generate(model, params, tokens, 2, **req)                # warm-up
+        g = generate(model, params, tokens, BIG_GEN, **req)
+        rec = {"prefill_s": g.prefill_s, "decode_s": g.decode_s,
+               "prefill_tok_per_s": BIG_BATCH * BIG_PROMPT / g.prefill_s,
+               "decode_tok_per_s": BIG_BATCH * (BIG_GEN - 1) / g.decode_s,
+               "output_shape": list(g.tokens.shape),
+               "output_sample": g.tokens[0, :8].tolist(),
+               "launches": g.launches,
+               "logits_finite": bool(torch.isfinite(g.logits).all())}
+        del req, tokens, g
+    torch.cuda.synchronize()
+    counts = runtime.counts()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    depth = f"depth cut to {layers}" if layers else "full depth"
+    print(f"[serve] {arch} full width, {depth} ({n_params} params, "
+          f"{cfg.param_count()} in the config's analytic count, which "
+          f"leaves out the norms; {weights / 1e9:.2f} GB of bf16 weights "
+          f"drawn in {init_s:.1f} s) "
+          f"B={BIG_BATCH} prompt {BIG_PROMPT} gen {BIG_GEN}: prefill "
+          f"{rec['prefill_s']:.4f} s ({rec['prefill_tok_per_s']:.1f} tok/s), "
+          f"decode {rec['decode_s']:.4f} s for {BIG_GEN - 1} steps "
+          f"({rec['decode_tok_per_s']:.2f} tok/s), peak memory "
+          f"{peak / 2**30:.2f} GiB ({peak / 1e9:.2f} GB); {wall:.1f} s with "
+          f"warm-up; timed-pass launches {rec['launches']}, all launches "
+          f"{counts}; sample {rec['output_sample']} ({card})", flush=True)
+    check(rec["output_shape"] == [BIG_BATCH, BIG_GEN],
+          f"{arch} serve output shape {rec['output_shape']}")
+    check(rec["logits_finite"], f"{arch} serve logits not finite")
+    one = {"prefill": {"flash_attention": prefill_launches},
+           "decode": ({"flash_attention": decode_launches * (BIG_GEN - 1)}
+                      if decode_launches else {})}
+    check(rec["launches"] == one, f"{arch} serve: one pass launched "
+                                  f"{rec['launches']}, expected {one}")
+    # the warm-up pass (prefill + one decode step) and the timed pass
+    want = {"flash_attention": 2 * prefill_launches
+            + decode_launches * BIG_GEN}
+    check(counts == want, f"{arch} serve launched {counts}, expected {want}")
+    return rec, counts, model, params
+
+
+def kernels_under(e) -> list:
+    """The device kernels (name, device, duration in µs) launched under a
+    profiler event: its own and its CPU children's, recursively."""
+    ks = list(e.kernels)
+    for c in e.cpu_children:
+        ks += kernels_under(c)
+    return ks
+
+
+def profile_moe_prefill(dev, card: str, model, params) -> None:
+    """Phase 31: one more full-width Qwen3-MoE prefill under
+    torch.profiler, each MoE layer inside a `moe_apply` range (a wrapper
+    set for this prefill only): device time split into the flash
+    forward, the MoE layers (their GEMMs: router and experts; the rest:
+    routing, sort, dispatch, combine), the other GEMMs and the rest (the
+    embedding lookup, the KV cache writes, norms, RoPE)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    tokens = torch.randint(0, model.cfg.vocab_size, (BIG_BATCH, BIG_PROMPT),
+                           generator=gen, device=dev)
+    moe_apply = moe.moe_apply
+
+    def ranged(*args, **kwargs):
+        with record_function("moe_apply"):
+            return moe_apply(*args, **kwargs)
+
+    with torch.no_grad():
+        cache = model.init_cache(BIG_BATCH, BIG_PROMPT + BIG_GEN, dev)
+        torch.cuda.synchronize()
+        moe.moe_apply = ranged
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model.prefill(params, {"tokens": tokens}, cache)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            moe.moe_apply = moe_apply
+    # the ranges' device-side annotations are spans, not kernels: kept
+    # apart from the kernels' rows
+    rows = sorted((e for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
+                   and e.key != "moe_apply"),
+                  key=dev_us, reverse=True)
+    spans = sum(dev_us(e) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")
+                and e.key == "moe_apply") / 1e3
+
+    def is_gemm(name):
+        return any(w in name.lower() for w in GEMM_WORDS)
+
+    total = sum(dev_us(e) for e in rows) / 1e3
+    flash = sum(dev_us(e) for e in rows if "fwd_tc_kernel" in e.key) / 1e3
+    gemm = sum(dev_us(e) for e in rows if is_gemm(e.key)) / 1e3
+    # the range's host events (the profiler also gives each a device-side
+    # annotation of the same name)
+    ranges = [e for e in prof.events() if e.name == "moe_apply"
+              and str(e.device_type).endswith("CPU")]
+    moe_ks = [k for e in ranges for k in kernels_under(e)]
+    moe_ms = sum(k.duration for k in moe_ks) / 1e3
+    moe_gemm = sum(k.duration for k in moe_ks if is_gemm(k.name)) / 1e3
+    check(total > 0, "Qwen3-MoE profile: no device time recorded")
+    check(len(ranges) == model.cfg.num_layers and moe_ms > 0,
+          f"Qwen3-MoE profile: {len(ranges)} moe_apply ranges with "
+          f"{moe_ms} ms of device time under them")
+    print(f"[profile] one full-width {MOE_ARCH} prefill (B={BIG_BATCH} S="
+          f"{BIG_PROMPT}): wall {wall_ms:.1f} ms (profiler on), device busy "
+          f"{total:.1f} ms ({100 * total / wall_ms:.1f}%): flash_attention "
+          f"{flash:.1f} ms; MoE layers {moe_ms:.1f} ms ({len(ranges)} "
+          f"moe_apply ranges, whose device-side spans sum to {spans:.1f} "
+          f"ms: GEMMs, router and experts' bmm, "
+          f"{moe_gemm:.1f} ms; routing, sort, dispatch and combine "
+          f"{moe_ms - moe_gemm:.1f} ms); other GEMMs {gemm - moe_gemm:.1f} "
+          f"ms; other {total - flash - moe_ms - (gemm - moe_gemm):.1f} ms; "
+          f"{sum(e.count for e in rows)} device ops ({card})", flush=True)
+    for e in rows[:16]:
+        print(f"[profile]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}", flush=True)
+    del cache
+    torch.cuda.empty_cache()
+
+
+def moe_train_rounds(dev, card: str) -> dict:
+    """Phase 36: Qwen3-MoE training at full width, the depth cut to
+    MOE_MESH_LAYERS, W 1, B 2, S 2048, bf16, through `Transformer.loss`
+    (the aux loss included) under the mesh engine (phase 25's helper):
+    launches as `mesh_launches_per_round` (the hd-128 forward and
+    backward builds, pso_update once a leaf), the _f32 counters never;
+    then the aux of the trained global params on a batch, finite and
+    > 0."""
+    return depth_cut_mesh_rounds(
+        dev, MOE_ARCH, MOE_MESH_LAYERS, MOE_MESH_W, MOE_MESH_B, MOE_MESH_S,
+        35, "hd 128", card)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3024,6 +3479,46 @@ def main() -> None:
     print(f"[time] phases 23-28 (the scan's backward, RecurrentGemma-9B "
           f"training, the xLSTM blocks): {time.perf_counter() - t0:.1f} s "
           f"({card})", flush=True)
+
+    t0 = time.perf_counter()
+    new_fwd_rows = new_forward_checks(dev)
+    new_bwd_row = new_backward_checks(dev)
+    # reduced MoE in f32: 2 attention layers (hd 32: the CUDA-core
+    # forward), at cf 1.25 (decode drops picks) and dropless (cf = E / K)
+    small_moe = {"prefill": {"flash_attention_f32": 2}, "decode": {}}
+    for arch in (MOE_ARCH, ARCTIC_ARCH):
+        for kw in ({}, {"moe_capacity_factor": 2.0}):
+            got = small_family_check(dev, arch, 300, **kw)
+            check(got == small_moe, f"small {arch} serve launched {got}, "
+                                    f"expected {small_moe}")
+    moe_rec, moe_serve_counts, model, params = big_serve(
+        dev, card, MOE_ARCH, 31, 48, 0)
+    profile_moe_prefill(dev, card, model, params)
+    del model, params
+    _, arctic_counts, model, params = big_serve(
+        dev, card, ARCTIC_ARCH, 32, ARCTIC_LAYERS, 0, layers=ARCTIC_LAYERS)
+    del model, params
+    # reduced SeamlessM4T (2 encoder, 2 decoder layers with cross) and
+    # LLaVA (a 16-token prefix): per prefill 6 and 2 CUDA-core forwards,
+    # per decode step 2 (the cross-attention) and none
+    got = small_family_check(dev, ENC_ARCH, 330)
+    check(got == {"prefill": {"flash_attention_f32": 6},
+                  "decode": {"flash_attention_f32": 2 * 7}},
+          f"small {ENC_ARCH} serve launched {got}")
+    got = small_family_check(dev, VLM_ARCH, 331)
+    check(got == {"prefill": {"flash_attention_f32": 2}, "decode": {}},
+          f"small {VLM_ARCH} serve launched {got}")
+    # SeamlessM4T: per prefill 24 encoder (non-causal), 24 self (causal)
+    # and 24 cross (non-causal) forwards; per decode step the 24 cross
+    # forwards (one query over the 4096-frame memory, through the kernel)
+    _, enc_counts, model, params = big_serve(dev, card, ENC_ARCH, 34, 72, 24)
+    del model, params
+    _, vlm_counts, model, params = big_serve(dev, card, VLM_ARCH, 35, 60, 0)
+    del model, params
+    moe_train_counts = moe_train_rounds(dev, card)
+    print(f"[time] phases 29-36 (this slice's flash cases, MoE, the encoder "
+          f"with cross-attention, prefix inputs): "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
 
     src = {"quant_pack_ef": ("quant_pack",
                              "src/repro/kernels/quant_pack/quant_pack.py:172"),
@@ -3188,6 +3683,67 @@ def main() -> None:
         launches=rg_counts["rglru_scan_bwd"], shape="f32 (2, 2048, 4096)",
         path="RecurrentGemma-9B training, depth cut to 3 layers (phase 25)",
         check="pass", **scan_rows["rglru_scan_bwd"]))
+    # this slice: the forward at hd 128 (Qwen3-MoE's prefill; LLaVA's and
+    # Arctic's serve and Qwen3's training run the same build), the
+    # non-causal forward (SeamlessM4T's encoder; its self- and
+    # cross-attention in the same run) and its cross decode, the backward
+    # at hd 128 (Qwen3's training); each kernel's launches in this slice's
+    # runs on its first row
+    for k in kernels:
+        if " (" not in k["name"]:
+            k["launches_moe_serve"] = moe_serve_counts.get(k["name"], 0)
+            k["launches_arctic_serve"] = arctic_counts.get(k["name"], 0)
+            k["launches_seamless_serve"] = enc_counts.get(k["name"], 0)
+            k["launches_llava_serve"] = vlm_counts.get(k["name"], 0)
+            k["launches_moe_train"] = moe_train_counts.get(k["name"], 0)
+    fa = {key: v for key, v in next(
+        k for k in kernels if k["name"] == "flash_attention").items()
+        if not key.startswith("launches")}
+    kernels.append(dict(
+        fa, name="flash_attention (hd 128 GQA, Qwen3-MoE prefill shape)",
+        shape="bf16 (4, 4096, 32 over 4, 128), causal; the 128 build",
+        launches=moe_serve_counts["flash_attention"],
+        launches_arctic_serve=arctic_counts["flash_attention"],
+        launches_llava_serve=vlm_counts["flash_attention"],
+        launches_moe_train=moe_train_counts["flash_attention"],
+        path="Qwen3-MoE-30B-A3B served at full width (phase 31)",
+        cuda_core_ms=None, f32_ms=None,
+        ragged_max_abs_err=new_fwd_rows["hd128 gqa7 ragged"]["max_abs_err"],
+        arctic_prefill_max_abs_err=new_fwd_rows["arctic prefill"][
+            "max_abs_err"],
+        llava_prefill_max_abs_err=new_fwd_rows["llava prefill"][
+            "max_abs_err"],
+        **new_fwd_rows["hd128 gqa"]))
+    kernels.append(dict(
+        fa, name="flash_attention (non-causal, SeamlessM4T encoder shape)",
+        shape="bf16 (4, 4096, 16, 64), MHA, no mask; the 64 build",
+        launches=enc_counts["flash_attention"],
+        launches_per_prefill={"encoder, non-causal": 24,
+                              "self, causal": 24, "cross, non-causal": 24},
+        path="SeamlessM4T-large-v2 served at full width (phase 34)",
+        cuda_core_ms=None, f32_ms=None,
+        ragged_max_abs_err=new_fwd_rows["non-causal ragged"]["max_abs_err"],
+        self_causal_max_abs_err=new_fwd_rows["seamless self"]["max_abs_err"],
+        **new_fwd_rows["non-causal"]))
+    kernels.append(dict(
+        fa, name="flash_attention (cross decode, Sq 1 over 4096 frames)",
+        shape="bf16 q (4, 1, 16, 64) over k, v (4, 4096, 16, 64), no mask; "
+              "the 64 build",
+        launches=enc_counts["flash_attention"],
+        launches_per_decode_step=24,
+        path="SeamlessM4T-large-v2 served at full width (phase 34)",
+        cuda_core_ms=None, f32_ms=None, **new_fwd_rows["cross decode"]))
+    bwd = {key: v for key, v in next(
+        k for k in kernels if k["name"] == "flash_attention_bwd").items()
+        if not key.startswith("launches")}
+    kernels.append(dict(
+        bwd, name="flash_attention_bwd (hd 128 GQA, Qwen3-MoE training "
+                  "shape)",
+        shape="bf16 (2, 2048, 32 over 4, 128), causal; the 128 build",
+        launches=moe_train_counts["flash_attention_bwd"],
+        path="Qwen3-MoE training, depth cut to 2 layers (phase 36)",
+        cuda_core_ms=None, f32_ms=None, library_fwd_bwd_ms=None,
+        **new_bwd_row))
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(card, flush=True)

@@ -1,11 +1,12 @@
 """Serving example: batched prefill + decode over the architecture
-families the port serves — dense GQA (SmolLM-360M), the mLSTM/sLSTM
-recurrence (xLSTM-350M, an O(1) decode state), the RG-LRU recurrence
-with local attention (RecurrentGemma-9B) and head dim 80 (StableLM-3B)
-— on reduced configs (the counterpart of the root
-`examples/serve_decode.py`, whose MoE family the port does not serve
-yet). The same `launch/serve.py` path drives the full configs on the
-card (`--full`).
+families of the root `examples/serve_decode.py` — dense GQA
+(SmolLM-360M), the mLSTM/sLSTM recurrence (xLSTM-350M, an O(1) decode
+state) and the 128-expert MoE (Qwen3-MoE-30B-A3B) — and the port's
+others: the RG-LRU recurrence with local attention (RecurrentGemma-9B),
+head dim 80 (StableLM-3B), the encoder with cross-attention
+(SeamlessM4T-large-v2) and prefix embeddings (LLaVA-NeXT-34B), on
+reduced configs. The same `launch/serve.py` path drives the full configs
+on the card (`--full`).
 
     python -m repro_torch.examples.serve_decode [--device cpu] [--full]
 """
@@ -15,8 +16,11 @@ from repro_torch.launch.serve import serve
 
 ARCHS = [("smollm-360m", "dense GQA"),
          ("xlstm-350m", "mLSTM/sLSTM recurrence -> O(1) decode state"),
+         ("qwen3-moe-30b-a3b", "128-expert MoE, top-8 routing"),
          ("recurrentgemma-9b", "RG-LRU recurrence + local attention"),
-         ("stablelm-3b", "MHA at head dim 80")]
+         ("stablelm-3b", "MHA at head dim 80"),
+         ("seamless-m4t-large-v2", "encoder + cross-attention decoder"),
+         ("llava-next-34b", "image-prefix embeddings before the prompt")]
 
 
 def main(argv=None) -> dict:

@@ -377,9 +377,21 @@ def _prepare_mesh(spec: ExperimentSpec, device: torch.device,
     B, S = m.per_worker_batch, m.seq_len
 
     def batch_for(lead: tuple) -> dict:
+        """Tokens and their labels; zero prefix embeddings and N(0, 1)
+        encoder frames where the config takes them (the reference's)."""
         toks = torch.randint(0, cfg.vocab_size, lead + (B, S), generator=gen,
                              device=device)
-        return {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+        out = {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+        dt = getattr(torch, cfg.dtype)
+        if cfg.input_mode == "tokens+prefix":
+            out["prefix"] = torch.zeros(lead + (B, cfg.prefix_len,
+                                                cfg.d_model),
+                                        dtype=dt, device=device)
+        if cfg.encoder_layers:
+            out["frames"] = torch.randn(
+                lead + (B, cfg.encoder_memory_len, cfg.d_model),
+                generator=gen, device=device, dtype=torch.float32).to(dt)
+        return out
 
     def draw(state):
         """(worker batches (W, B, S), eval batch (B, S), RoundDraws)."""

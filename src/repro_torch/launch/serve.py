@@ -1,8 +1,11 @@
 """Serving driver of the port: batched prefill, then greedy or
 temperature decode with a KV/recurrent cache, as the JAX package's
-`launch/serve.py`. Full configurations run for real on one card
-(`reduced=False`); the prefill goes through the flash-attention and
-RG-LRU scan kernels.
+`launch/serve.py`, for every config of the repo: MoE (Qwen3-MoE,
+Arctic), the encoder with cross-attention (SeamlessM4T: the request's
+frames are encoded into the cache) and prefix inputs (LLaVA: the prefix
+embeddings go before the prompt). Full configurations run for real on
+one card (`reduced=False`); the prefill goes through the flash-attention
+and RG-LRU scan kernels.
 
   python -m repro_torch.launch.serve --arch recurrentgemma-9b --full \\
       --batch 4 --prompt-len 4096 --gen-len 32 [--device cpu]
@@ -13,7 +16,9 @@ no `--device` it fails instead of falling back to the CPU.
 Timing: `prefill_s` and `decode_s` are host wall times, synchronised with
 the device, of a second pass over the same request after a warm-up pass
 (the prefill and one decode step), so no first-call set-up is in them.
-The reference's `prefill_s` includes its jit compile.
+The prefill's time and launches include the encoder and the cache's
+set-up (its cross K/V), as the reference's `prefill_fn`; the reference's
+`prefill_s` also includes its jit compile.
 """
 from __future__ import annotations
 
@@ -42,10 +47,24 @@ class Generation(NamedTuple):
 
 def make_request_batch(gen: torch.Generator, cfg, batch: int,
                        prompt_len: int, device) -> dict:
-    """Synthetic batched requests (token inputs only in this port)."""
+    """Synthetic batched requests: tokens, and the precomputed frontend
+    embeddings a config takes, 0.02 N(0, 1) in the config dtype: the
+    `prefix` (B, prefix_len, D) of "tokens+prefix" and the encoder's
+    `frames` (B, encoder_memory_len, D)."""
     tokens = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen, device=device)
-    return {"tokens": tokens}
+    out = {"tokens": tokens}
+
+    def embeddings(n):
+        x = torch.randn((batch, n, cfg.d_model), generator=gen,
+                        device=device, dtype=torch.float32)
+        return (0.02 * x).to(getattr(torch, cfg.dtype))
+
+    if cfg.input_mode == "tokens+prefix":
+        out["prefix"] = embeddings(cfg.prefix_len)
+    if cfg.encoder_layers:
+        out["frames"] = embeddings(cfg.encoder_memory_len)
+    return out
 
 
 def _sync(device: torch.device) -> None:
@@ -60,12 +79,20 @@ def _delta(after: dict, before: dict) -> dict:
 
 def generate(model: Transformer, params, tokens: torch.Tensor, gen_len: int,
              *, temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> Generation:
-    """Prefill `tokens` (B, P), then decode gen_len - 1 more tokens.
-    Greedy is the first maximum of the logits (as jnp.argmax); with a
-    temperature the draws come from `generator`."""
+             generator: Optional[torch.Generator] = None,
+             prefix: Optional[torch.Tensor] = None,
+             frames: Optional[torch.Tensor] = None) -> Generation:
+    """Prefill `tokens` (B, P) after `prefix` (B, prefix_len, D) if
+    given, the model attending the encoded `frames` (B, M, D) if given;
+    then decode gen_len - 1 more tokens. Greedy is the first maximum of
+    the logits (as jnp.argmax); with a temperature the draws come from
+    `generator`."""
     B, P = tokens.shape
     dev = tokens.device
+    batch = {"tokens": tokens}
+    if prefix is not None:
+        batch["prefix"] = prefix
+    cache_len = P + gen_len + (0 if prefix is None else prefix.shape[1])
 
     def sample(logits):
         last = logits[:, -1]
@@ -75,11 +102,14 @@ def generate(model: Transformer, params, tokens: torch.Tensor, gen_len: int,
         return torch.multinomial(probs, 1, generator=generator)
 
     with torch.no_grad():
-        cache = model.init_cache(B, P + gen_len, dev)
         _sync(dev)
         c0 = runtime.counts()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens}, cache)
+        memory = None if frames is None else model.encode(params, frames)
+        cache = model.init_cache(B, cache_len, dev, memory=memory,
+                                 params=params)
+        del memory
+        logits, cache = model.prefill(params, batch, cache)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         c1 = runtime.counts()
@@ -102,10 +132,13 @@ def generate(model: Transformer, params, tokens: torch.Tensor, gen_len: int,
 def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen_len: int = 16,
           reduced: bool = True, temperature: float = 0.0, seed: int = 0,
           params=None, verbose: bool = True, device=None,
-          tokens: Optional[torch.Tensor] = None) -> dict:
-    """Serve one synthetic request batch (or `tokens`, (batch,
-    prompt_len)) and return the run record. Params are drawn from
-    `seed` unless given (the port's own tree, e.g. from
+          tokens: Optional[torch.Tensor] = None,
+          prefix: Optional[torch.Tensor] = None,
+          frames: Optional[torch.Tensor] = None) -> dict:
+    """Serve one synthetic request batch (or the given one: `tokens`
+    (batch, prompt_len), with the `prefix` and `frames` the config
+    takes) and return the run record. Params are drawn from `seed`
+    unless given (the port's own tree, e.g. from
     `bridge.transformer_params_from_numpy`)."""
     dev = runtime.resolve_device(device)
     cfg = get_arch(arch)
@@ -116,16 +149,26 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen_len: int = 16,
     if params is None:
         params = model.init(gen, dev)
     if tokens is None:
-        tokens = make_request_batch(gen, cfg, batch, prompt_len,
-                                    dev)["tokens"]
-    tokens = tokens.to(dev)
-    if tuple(tokens.shape) != (batch, prompt_len):
-        raise ValueError(f"tokens {tuple(tokens.shape)}, expected "
-                         f"{(batch, prompt_len)}")
+        req = make_request_batch(gen, cfg, batch, prompt_len, dev)
+    else:
+        req = {"tokens": tokens, "prefix": prefix, "frames": frames}
+    want = {"tokens": (batch, prompt_len)}
+    if cfg.input_mode == "tokens+prefix":
+        want["prefix"] = (batch, cfg.prefix_len, cfg.d_model)
+    if cfg.encoder_layers:
+        want["frames"] = (batch, cfg.encoder_memory_len, cfg.d_model)
+    for key, shape in want.items():
+        got = None if req.get(key) is None else tuple(req[key].shape)
+        if got != shape:
+            raise ValueError(f"{key} {got}, expected {shape}")
+    req = {k: req[k].to(dev) for k in want}
+    tokens = req.pop("tokens")
     generate(model, params, tokens, min(gen_len, 2), temperature=temperature,
-             generator=torch.Generator(device=dev).manual_seed(seed))  # warm-up
+             generator=torch.Generator(device=dev).manual_seed(seed),
+             **req)                                               # warm-up
     g = generate(model, params, tokens, gen_len, temperature=temperature,
-                 generator=torch.Generator(device=dev).manual_seed(seed))
+                 generator=torch.Generator(device=dev).manual_seed(seed),
+                 **req)
     rec = {
         "arch": arch, "reduced": reduced, "batch": batch,
         "prompt_len": prompt_len, "gen_len": gen_len,

@@ -5,7 +5,8 @@ Conventions, as there: params are nested dicts of tensors; x is
 (B, S, D) and attention internals (B, S, H, hd); matmuls run in the
 config dtype, norms, rotary angles and softmax in f32. An init function
 takes a `torch.Generator`, the device and `lead`, a tuple of leading
-dims (the stacked layer groups), and draws one leaf at a time.
+dims (the stacked layer groups), and draws one leaf at a time (a large
+leaf in blocks of rows: `normal_init`).
 
 Attention over a whole sequence (train, prefill) goes through
 `kernels.flash_attention` (the CUDA kernel on a card, the plain version
@@ -14,8 +15,10 @@ when a gradient is wanted (training) that is its autograd Function
 (forward kernel with the log-sum-exp, backward kernel), where the
 reference differentiates `chunked_attention` through XLA.
 Decode attends one token over the cache with a grouped product, as the
-reference does. Caches are written in place (`index_copy_`) and
-returned; their `pos` is a Python int, so decode never syncs the host.
+reference does; cross-attention (`memory_kv`) attends the encoder memory
+through the flash kernel in every mode, decode's one query included.
+Caches are written in place (`index_copy_`) and returned; their `pos`
+is a Python int, so decode never syncs the host.
 """
 from __future__ import annotations
 
@@ -35,14 +38,40 @@ def cdtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+# f32 elements of one draw: a leaf larger than this is drawn a block of
+# whole rows at a time into the leaf itself, so that no f32 copy of a
+# large stacked leaf (Qwen3-MoE's (48, 128, 2048, 768) expert weights:
+# 38.7 GB in f32) ever exists next to the weights already drawn
+DRAW_ELEMENTS = 1 << 26
+
+
+def normal_init(gen: Optional[torch.Generator], shape: tuple, scale: float,
+                dtype: torch.dtype, device) -> torch.Tensor:
+    """N(0, 1) drawn in f32, times `scale`, then cast to `dtype`. One
+    rule for every leaf: the leaf, seen as rows of its last dim, is
+    drawn in blocks of up to DRAW_ELEMENTS elements of whole rows (at
+    least one row), each block its own `randn` call. On the "meta"
+    device, the shape and dtype only."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    if out.device.type == "meta" or out.numel() == 0:
+        return out
+    rows = out.view(-1, out.shape[-1]) if out.dim() else out.view(1, 1)
+    step = max(1, DRAW_ELEMENTS // rows.shape[1])
+    for r0 in range(0, rows.shape[0], step):
+        blk = torch.randn((min(step, rows.shape[0] - r0), rows.shape[1]),
+                          generator=gen, device=out.device, dtype=F32)
+        rows[r0:r0 + blk.shape[0]] = blk.mul_(scale)
+    return out
+
+
 def dense_init(gen: Optional[torch.Generator], shape: tuple, fan_in: int,
                dtype: torch.dtype, device, lead: tuple = ()
                ) -> torch.Tensor:
     """N(0, 1/fan_in) drawn in f32, then cast (the reference's
-    `dense_init`; fan_in is its `shape[in_axis]`)."""
-    x = torch.randn(tuple(lead) + tuple(shape), generator=gen, device=device,
-                    dtype=F32)
-    return (x / math.sqrt(fan_in)).to(dtype)
+    `dense_init`; fan_in is its `shape[in_axis]`), by `normal_init`'s
+    rule."""
+    return normal_init(gen, tuple(lead) + tuple(shape),
+                       1.0 / math.sqrt(fan_in), dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -66,8 +95,7 @@ def rmsnorm(params: PyTree, x: torch.Tensor, eps: float = 1e-6
 # ---------------------------------------------------------------------------
 
 def embedding_init(gen, vocab: int, d: int, dtype, device) -> PyTree:
-    tbl = torch.randn((vocab, d), generator=gen, device=device, dtype=F32)
-    return {"table": (tbl * 0.01).to(dtype)}
+    return {"table": normal_init(gen, (vocab, d), 0.01, dtype, device)}
 
 
 def embed(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
@@ -116,7 +144,7 @@ def attention_init(gen, cfg, device, lead: tuple = ()) -> PyTree:
     }
 
 
-def _project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B,S,D) x (D,N,hd) -> (B,S,N,hd) as one matmul."""
     B, S, D = h.shape
     return torch.matmul(h, w.reshape(D, -1)).reshape(B, S, *w.shape[1:])
@@ -150,24 +178,33 @@ def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_apply(params: PyTree, x: torch.Tensor, cfg, *, mode: str,
-                    layer_cache: Optional[PyTree] = None,
-                    window: int = 0) -> tuple[torch.Tensor, Optional[PyTree]]:
-    """One self-attention sub-block (pre-norm; the caller adds the
-    residual). mode: "train" | "prefill" | "decode".
+                    layer_cache: Optional[PyTree] = None, window: int = 0,
+                    memory_kv: Optional[tuple] = None
+                    ) -> tuple[torch.Tensor, Optional[PyTree]]:
+    """One attention sub-block (pre-norm; the caller adds the residual).
+    mode: "train" | "prefill" | "decode" | "encode" (bidirectional: RoPE
+    from position 0, no cache, no causal mask).
 
     layer_cache: {"k", "v": (B, S_cache, K, hd) (S_cache = window for the
     sliding-window ring), "pos": int tokens already written}. Returns
-    (out, new_cache); the cache tensors are updated in place."""
-    if mode not in ("train", "prefill", "decode"):
-        raise NotImplementedError(
-            f"attention mode {mode!r} (the encoder) is not ported yet")
-    if mode == "decode" and layer_cache is None:
-        raise ValueError("decode attends over a cache: pass layer_cache")
+    (out, new_cache); the cache tensors are updated in place.
+
+    Cross-attention: memory_kv = (k, v), each (B, M, K, hd), the memory's
+    keys and values (`Transformer._memory_kv`). q is projected from x and
+    gets no RoPE; there is no cache; every mode attends all M keys
+    through the flash kernel, non-causally (decode too: Sq = 1 over M)."""
+    if mode not in ("train", "prefill", "decode", "encode"):
+        raise ValueError(f"attention mode {mode!r}")
     B, S, D = x.shape
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
-    q = _project(h, params["wq"])
-    k = _project(h, params["wk"])
-    v = _project(h, params["wv"])
+    q = project(h, params["wq"])
+    if memory_kv is not None:
+        out = flash_attention(q, memory_kv[0], memory_kv[1], causal=False)
+        return _out_proj(params, out), None
+    if mode == "decode" and layer_cache is None:
+        raise ValueError("decode attends over a cache: pass layer_cache")
+    k = project(h, params["wk"])
+    v = project(h, params["wv"])
 
     pos = 0 if layer_cache is None else int(layer_cache["pos"])
     positions = pos + torch.arange(S, device=x.device)[None, :]
@@ -190,10 +227,16 @@ def attention_apply(params: PyTree, x: torch.Tensor, cfg, *, mode: str,
     if mode == "decode":
         out = _decode_attention(q, ck, cv, pos + S - 1, window).to(x.dtype)
     else:
-        out = flash_attention(q, k, v, causal=True, window=window)
-    y = torch.matmul(out.reshape(B, S, -1),
-                     params["wo"].reshape(-1, params["wo"].shape[-1]))
-    return y, new_cache
+        out = flash_attention(q, k, v, causal=mode != "encode",
+                              window=window)
+    return _out_proj(params, out), new_cache
+
+
+def _out_proj(params: PyTree, out: torch.Tensor) -> torch.Tensor:
+    """(B,S,H,hd) x (H,hd,D) -> (B,S,D) as one matmul."""
+    B, S = out.shape[:2]
+    return torch.matmul(out.reshape(B, S, -1),
+                        params["wo"].reshape(-1, params["wo"].shape[-1]))
 
 
 def init_attention_cache(cfg, batch: int, cache_len: int, window: int,

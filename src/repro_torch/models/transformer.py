@@ -1,36 +1,45 @@
 """The transformer stack of the port, as the JAX package's
-`models/transformer.py`, for the block kinds attn (full causal), swa
-(sliding window), rglru (RecurrentGemma) and xLSTM's mlstm and slstm.
-Attention and rglru layers take the gated-MLP channel mixer when
-`d_ff` is set; the xLSTM blocks embed their own mixers and take none.
+`models/transformer.py`, for every config of the repo: the block kinds
+attn (full causal), swa (sliding window), rglru (RecurrentGemma) and
+xLSTM's mlstm and slstm; a channel mixer per attention or rglru layer,
+the gated MLP or, with `num_experts`, MoE (`models/moe.py`, Arctic's
+dense residual included); the xLSTM blocks embed their own mixers and
+take none. Optional per config: an encoder stack and cross-attention in
+every decoder layer (SeamlessM4T), and inputs of prefix embeddings
+before the tokens (LLaVA) or of embeddings alone.
 
 The param and cache trees are the reference's: the `block_pattern`
 repeats `num_layers // P` times, so `groups` leaves carry a leading
-n_rep dim, and the `L % P` remainder layers sit under `rem{r}`. A Python
-loop over the groups takes the place of `lax.scan`. Caches are updated
-in place and returned.
+n_rep dim, and the `L % P` remainder layers sit under `rem{r}`; the
+encoder's layers are stacked under `encoder/layers`. A Python loop over
+the groups takes the place of `lax.scan`. Caches are updated in place
+and returned.
 
 Public API:
     model = Transformer(cfg)
     params = model.init(generator, device)          # device "meta": shapes
-    logits = model.forward(params, batch)           # teacher forcing
-    loss = model.loss(params, batch)                # next-token CE (f32)
-    cache = model.init_cache(batch_size, cache_len, device)
+    logits, aux = model.forward(params, batch)      # teacher forcing
+    loss = model.loss(params, batch)                # CE (f32) + 0.01 aux
+    memory = model.encode(params, frames)           # encoder-decoder
+    cache = model.init_cache(batch_size, cache_len, device, memory=memory,
+                             params=params)
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode_step(params, tokens, cache)
 
-In train mode with `cfg.remat` (and a gradient wanted), each layer
-group runs under `torch.utils.checkpoint` (non-reentrant): its
-activations are dropped after the forward and recomputed in the
-backward from the group's (B, S, D) input, the counterpart of the
-reference's `jax.checkpoint(..., nothing_saveable)` around its scan
-body. Attention is differentiable through the flash kernels' autograd
-Function, and the RG-LRU scan through its own (the scan's backward
-kernel); the xLSTM blocks are plain PyTorch, differentiated by autograd.
+batch: "tokens" (B, S); "prefix" (B, prefix_len, D) before them for
+input_mode "tokens+prefix"; "embeddings" (B, S, D) in place of them for
+"embeddings"; "frames" (B, M, D) for a config with an encoder (forward
+and loss; serving encodes them into the cache); "labels" for the loss.
 
-Not ported yet (a later slice; each raises NotImplementedError): MoE,
-cross-attention and the encoder, and the `tokens+prefix`/`embeddings`
-inputs.
+In train mode with `cfg.remat` (and a gradient wanted), each layer
+group, and each encoder layer, runs under `torch.utils.checkpoint`
+(non-reentrant): its activations are dropped after the forward and
+recomputed in the backward from its (B, S, D) input, the counterpart
+of the reference's `jax.checkpoint(..., nothing_saveable)` around its
+scan body. Attention is differentiable through the flash kernels'
+autograd Function, and the RG-LRU scan through its own (the scan's
+backward kernel); MoE's dispatch and the xLSTM blocks are plain
+PyTorch, differentiated by autograd.
 """
 from __future__ import annotations
 
@@ -42,35 +51,30 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, MLSTM, RGLRU, SLSTM, SWA,
                                       ArchConfig)
-from repro_torch.models import layers, recurrent
+from repro_torch.models import layers, moe, recurrent
 from repro_torch.models.layers import cdtype
 
 PyTree = Any
-# where the missing features stand in ROADMAP.md's queue 1: MoE,
-# cross-attention and the encoder, and the other inputs
-_LATER = ("is not ported yet (a later slice of the port: ROADMAP queue 1, "
-          "'MoE, then cross-attention')")
-_KINDS = (ATTN, SWA, RGLRU, MLSTM, SLSTM)
+F32 = torch.float32
 
 
-def _unsupported(cfg: ArchConfig) -> list[str]:
-    out = []
+def _mixer_kind(cfg: ArchConfig, block_kind: str) -> str:
+    """The xLSTM blocks embed their own mixers and take none; the other
+    blocks take MoE with `num_experts`, else the gated MLP when d_ff is
+    set."""
+    if block_kind in (MLSTM, SLSTM):
+        return "none"
     if cfg.num_experts:
-        out.append("MoE")
-    if cfg.cross_attention or cfg.encoder_layers:
-        out.append("cross-attention / the encoder")
-    if cfg.input_mode != "tokens":
-        out.append(f"input_mode {cfg.input_mode!r}")
-    out += [f"block kind {k!r}" for k in dict.fromkeys(cfg.block_pattern)
-            if k not in _KINDS]
-    return out
+        return "moe"
+    return "mlp" if cfg.d_ff else "none"
 
 
-def _takes_mlp(cfg: ArchConfig, block_kind: str) -> bool:
-    """The reference's `_mixer_kind` rule: the xLSTM blocks embed their
-    own mixers and take none whatever d_ff is; the other blocks take the
-    gated MLP when d_ff is set (MoE, its other mixer, is not ported)."""
-    return block_kind not in (MLSTM, SLSTM) and bool(cfg.d_ff)
+def _add(total: Optional[torch.Tensor], a: Optional[torch.Tensor]
+         ) -> Optional[torch.Tensor]:
+    """Sum of aux losses, None standing for a layer without MoE."""
+    if a is None:
+        return total
+    return a if total is None else total + a
 
 
 def _index(tree: PyTree, i: int) -> PyTree:
@@ -109,7 +113,7 @@ def _write_back(stacked: PyTree, i: int, new: PyTree,
 
 
 def layer_init(gen, cfg: ArchConfig, block_kind: str, device,
-               lead: tuple = ()) -> PyTree:
+               lead: tuple = (), cross: bool = False) -> PyTree:
     p: PyTree = {}
     if block_kind in (ATTN, SWA):
         p["temporal"] = layers.attention_init(gen, cfg, device, lead)
@@ -120,17 +124,25 @@ def layer_init(gen, cfg: ArchConfig, block_kind: str, device,
     elif block_kind == SLSTM:
         p["temporal"] = recurrent.slstm_init(gen, cfg, device, lead)
     else:
-        raise NotImplementedError(f"block kind {block_kind!r} {_LATER}")
-    if _takes_mlp(cfg, block_kind):
+        raise ValueError(f"block kind {block_kind!r}")
+    if cross:
+        p["cross"] = layers.attention_init(gen, cfg, device, lead)
+    mk = _mixer_kind(cfg, block_kind)
+    if mk == "mlp":
         p["mlp"] = layers.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg, device,
                                    lead)
+    elif mk == "moe":
+        p["moe"] = moe.moe_init(gen, cfg, device, lead)
     return p
 
 
 def layer_apply(p: PyTree, x: torch.Tensor, cfg: ArchConfig,
-                block_kind: str, *, mode: str, cache: Optional[PyTree]
-                ) -> tuple[torch.Tensor, Optional[PyTree]]:
-    """Returns (x_out, new_cache)."""
+                block_kind: str, *, mode: str, cache: Optional[PyTree],
+                memory_kv: Optional[tuple] = None
+                ) -> tuple[torch.Tensor, Optional[PyTree],
+                           Optional[torch.Tensor]]:
+    """Returns (x_out, new_cache, aux): aux is the MoE load-balance loss
+    (an f32 scalar), None for a layer without MoE."""
     tcache = None if cache is None else cache.get("temporal")
     if block_kind in (ATTN, SWA):
         window = cfg.window_size if block_kind == SWA else 0
@@ -146,11 +158,19 @@ def layer_apply(p: PyTree, x: torch.Tensor, cfg: ArchConfig,
         y, nc = recurrent.slstm_apply(p["temporal"], x, cfg, mode=mode,
                                       layer_cache=tcache)
     else:
-        raise NotImplementedError(f"block kind {block_kind!r} {_LATER}")
+        raise ValueError(f"block kind {block_kind!r}")
     x = x + y
+    if "cross" in p and memory_kv is not None:
+        y, _ = layers.attention_apply(p["cross"], x, cfg, mode=mode,
+                                      memory_kv=memory_kv)
+        x = x + y
+    aux = None
     if "mlp" in p:
         x = x + layers.mlp_apply(p["mlp"], x, cfg)
-    return x, (None if nc is None else {"temporal": nc})
+    elif "moe" in p:
+        y, aux = moe.moe_apply(p["moe"], x, cfg)
+        x = x + y
+    return x, (None if nc is None else {"temporal": nc}), aux
 
 
 def init_layer_cache(cfg: ArchConfig, block_kind: str, batch: int,
@@ -169,15 +189,11 @@ def init_layer_cache(cfg: ArchConfig, block_kind: str, batch: int,
     if block_kind == SLSTM:
         return {"temporal": recurrent.init_slstm_cache(cfg, batch, device,
                                                        lead)}
-    raise NotImplementedError(f"block kind {block_kind!r} {_LATER}")
+    raise ValueError(f"block kind {block_kind!r}")
 
 
 class Transformer:
     def __init__(self, cfg: ArchConfig):
-        missing = _unsupported(cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(missing)} {_LATER}")
         self.cfg = cfg
         P = len(cfg.block_pattern)
         self.n_rep = cfg.num_layers // P
@@ -186,10 +202,12 @@ class Transformer:
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator], device) -> PyTree:
-        """Random params drawn leaf by leaf on `device` (each leaf in f32,
-        then cast, so the full model never exists in f32). On the "meta"
+        """Random params drawn leaf by leaf on `device`, by
+        `layers.normal_init`'s rule (in f32 a block of rows at a time,
+        then cast, so no large leaf ever exists in f32). On the "meta"
         device this gives the shapes and dtypes only."""
         cfg = self.cfg
+        cross = cfg.cross_attention
         params: PyTree = {
             "embed": layers.embedding_init(generator, cfg.vocab_size,
                                            cfg.d_model, cdtype(cfg), device),
@@ -198,86 +216,166 @@ class Transformer:
         if self.n_rep:
             params["groups"] = {
                 f"b{j}": layer_init(generator, cfg, kind, device,
-                                    (self.n_rep,))
+                                    (self.n_rep,), cross)
                 for j, kind in enumerate(self.pattern)}
         for r in range(self.n_rem):
             params[f"rem{r}"] = layer_init(generator, cfg, self.pattern[r],
-                                           device)
+                                           device, (), cross)
+        if cfg.encoder_layers:
+            params["encoder"] = {
+                "layers": layer_init(generator, cfg, ATTN, device,
+                                     (cfg.encoder_layers,)),
+                "final_norm": layers.rmsnorm_init(cfg.d_model, device),
+            }
         return params
+
+    # -- inputs and the encoder -------------------------------------------------
+    def _embed_inputs(self, params: PyTree, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.input_mode == "embeddings":
+            return batch["embeddings"].to(cdtype(cfg))
+        x = layers.embed(params["embed"], batch["tokens"])
+        if cfg.input_mode == "tokens+prefix":
+            x = torch.cat([batch["prefix"].to(x.dtype), x], dim=1)
+        return x
+
+    def _encoder_layer(self, lp: PyTree, x: torch.Tensor) -> torch.Tensor:
+        return layer_apply(lp, x, self.cfg, ATTN, mode="encode",
+                           cache=None)[0]
+
+    def encode(self, params: PyTree, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, M, D) precomputed frontend embeddings -> the
+        memory (B, M, D): the encoder's bidirectional layers, then its
+        final norm. Each layer under remat when a gradient is wanted."""
+        cfg = self.cfg
+        x = frames.to(cdtype(cfg))
+        remat = cfg.remat and torch.is_grad_enabled()
+        for lp in _unstack(params["encoder"]["layers"], cfg.encoder_layers):
+            if remat:
+                x = checkpoint(self._encoder_layer, lp, x,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = self._encoder_layer(lp, x)
+        return layers.rmsnorm(params["encoder"]["final_norm"], x,
+                              cfg.norm_eps)
+
+    def _memory_kv(self, params_attn: PyTree, memory: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """A cross block's K and V of the memory, each (B, M, K, hd)."""
+        h = layers.rmsnorm(params_attn["norm"], memory, self.cfg.norm_eps)
+        return (layers.project(h, params_attn["wk"]),
+                layers.project(h, params_attn["wv"]))
+
+    def _cross(self, lp: PyTree, memory: Optional[torch.Tensor],
+               stored: Optional[torch.Tensor]) -> Optional[tuple]:
+        """A layer's memory K/V: from the memory (forward), or its slice
+        (2, B, M, K, hd) of the cache's precomputed `cross_kv` (serving);
+        None for a layer without cross-attention."""
+        if "cross" not in lp:
+            return None
+        if memory is not None:
+            return self._memory_kv(lp["cross"], memory)
+        return None if stored is None else (stored[0], stored[1])
 
     # -- the stack ------------------------------------------------------------
     def _group(self, group: PyTree, x: torch.Tensor, mode: str,
-               cache: Optional[PyTree] = None, i: int = 0
-               ) -> tuple[torch.Tensor, dict]:
+               cache: Optional[PyTree] = None, i: int = 0,
+               memory: Optional[torch.Tensor] = None):
         """Group i of the stacked layers, its params unstacked. With a
         cache, each layer reads its slice i of the stacked group cache
-        and writes its new cache back there; returns x and the layers'
-        new caches (None without a cache)."""
-        new = {}
+        (and of `cross_kv`) and writes its new cache back there; returns
+        x, the layers' new caches (None without a cache) and the group's
+        aux loss (None without MoE)."""
+        new, aux = {}, None
         for j, kind in enumerate(self.pattern):
-            lc = None if cache is None else _index(
-                cache["groups"][f"b{j}"], i)
-            x, new[j] = layer_apply(group[f"b{j}"], x, self.cfg, kind,
-                                    mode=mode, cache=lc)
+            lc = stored = None
+            if cache is not None:
+                lc = _index(cache["groups"][f"b{j}"], i)
+                if "cross_kv" in cache:
+                    stored = cache["cross_kv"][f"b{j}"][i]
+            lp = group[f"b{j}"]
+            x, new[j], a = layer_apply(lp, x, self.cfg, kind, mode=mode,
+                                       cache=lc, memory_kv=self._cross(
+                                           lp, memory, stored))
+            aux = _add(aux, a)
             if cache is not None:
                 _write_back(cache["groups"][f"b{j}"], i, new[j])
-        return x, new
+        return x, new, aux
 
     def _run(self, params: PyTree, x: torch.Tensor, cache: Optional[PyTree],
-             mode: str) -> torch.Tensor:
+             mode: str, memory: Optional[torch.Tensor] = None
+             ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The decoder stack and the final norm; returns (x, aux)."""
         cfg = self.cfg
         remat = (cache is None and mode == "train" and cfg.remat
                  and torch.is_grad_enabled())
-        last = {}
+        last, aux = {}, None
         groups = _unstack(params["groups"], self.n_rep) if self.n_rep else []
         for i, group in enumerate(groups):
             if remat:
                 # no random ops inside: no RNG state to stash
-                x = checkpoint(self._group, group, x, mode,
-                               use_reentrant=False,
-                               preserve_rng_state=False)[0]
+                x, _, a = checkpoint(self._group, group, x, mode, None, i,
+                                     memory, use_reentrant=False,
+                                     preserve_rng_state=False)
             else:
-                x, last = self._group(group, x, mode, cache, i)
+                x, last, a = self._group(group, x, mode, cache, i, memory)
+            aux = _add(aux, a)
         if cache is not None:
             for j, nc in last.items():
                 _write_back(cache["groups"][f"b{j}"], 0, nc, tensors=False)
         for r in range(self.n_rem):
             lc = None if cache is None else cache[f"rem{r}"]
-            x, nc = layer_apply(params[f"rem{r}"], x, cfg, self.pattern[r],
-                                mode=mode, cache=lc)
+            stored = None if cache is None else cache.get(f"cross_kv_rem{r}")
+            lp = params[f"rem{r}"]
+            x, nc, a = layer_apply(lp, x, cfg, self.pattern[r], mode=mode,
+                                   cache=lc, memory_kv=self._cross(
+                                       lp, memory, stored))
+            aux = _add(aux, a)
             if cache is not None:
                 cache[f"rem{r}"] = nc
-        return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-
-    def _tokens(self, batch: dict) -> torch.Tensor:
-        if "tokens" not in batch:
-            raise NotImplementedError(f"inputs other than tokens {_LATER}")
-        return batch["tokens"]
+        return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
     # -- full-sequence forward (teacher forcing) ------------------------------
-    def forward(self, params: PyTree, batch: dict) -> torch.Tensor:
-        """Logits (B, S, V) in the config dtype. (The reference also
-        returns the MoE aux loss; with no MoE here there is none.)"""
-        x = layers.embed(params["embed"], self._tokens(batch))
-        x = self._run(params, x, None, "train")
-        return layers.unembed(params["embed"], x)
+    def forward(self, params: PyTree, batch: dict
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(logits (B, S, V) in the config dtype, the summed MoE aux
+        loss, an f32 scalar, 0 without MoE). With a prefix, S counts the
+        prefix positions too."""
+        x = self._embed_inputs(params, batch)
+        memory = (self.encode(params, batch["frames"])
+                  if self.cfg.encoder_layers else None)
+        x, aux = self._run(params, x, None, "train", memory)
+        if aux is None:
+            aux = torch.zeros((), dtype=F32, device=x.device)
+        return layers.unembed(params["embed"], x), aux
 
     # -- loss ------------------------------------------------------------------
-    def loss(self, params: PyTree, batch: dict) -> torch.Tensor:
+    def loss(self, params: PyTree, batch: dict,
+             aux_weight: float = 0.01) -> torch.Tensor:
         """Next-token cross-entropy in f32, the mean over the unmasked
-        targets. batch["labels"]: (B, S) with labels < 0 masked; the
-        logits at position t are scored against labels[t + 1]. (The
-        reference adds the MoE aux loss; with no MoE here it is 0.)"""
-        logits = self.forward(params, batch)[:, :-1]
+        targets, plus `aux_weight` times the MoE aux loss. batch["labels"]:
+        (B, S) with labels < 0 masked; the logits at token position t are
+        scored against labels[t + 1] (the prefix's logits are dropped)."""
+        logits, aux = self.forward(params, batch)
+        if self.cfg.input_mode == "tokens+prefix":
+            logits = logits[:, self.cfg.prefix_len:]
+        logits = logits[:, :-1]
         targets = batch["labels"][:, 1:]
         mask = targets >= 0
         lp = F.log_softmax(logits.to(torch.float32), dim=-1)
         del logits
         ll = lp.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
-        return -(ll * mask).sum() / mask.sum().clamp_min(1)
+        ce = -(ll * mask).sum() / mask.sum().clamp_min(1)
+        return ce + aux_weight * aux
 
     # -- caches -----------------------------------------------------------------
-    def init_cache(self, batch: int, cache_len: int, device) -> PyTree:
+    def init_cache(self, batch: int, cache_len: int, device,
+                   memory: Optional[torch.Tensor] = None,
+                   params: Optional[PyTree] = None) -> PyTree:
+        """Zeroed self-attention/recurrent caches; with cross-attention,
+        a `memory` and the `params`, also each decoder layer's memory K/V
+        stacked as (2, B, M, K, hd): `cross_kv` {"b{j}": (n_rep, 2, ...)}
+        and `cross_kv_rem{r}`, as the reference keys them."""
         cfg = self.cfg
         dt = cdtype(cfg)
         cache: PyTree = {}
@@ -289,20 +387,36 @@ class Transformer:
         for r in range(self.n_rem):
             cache[f"rem{r}"] = init_layer_cache(cfg, self.pattern[r], batch,
                                                 cache_len, dt, device)
+        if cfg.cross_attention and memory is not None and params is not None:
+            if self.n_rep:
+                cache["cross_kv"] = {}
+                for j in range(len(self.pattern)):
+                    gp = params["groups"][f"b{j}"]["cross"]
+                    kv = None
+                    for i, lp in enumerate(_unstack(gp, self.n_rep)):
+                        k, v = self._memory_kv(lp, memory)
+                        if kv is None:
+                            kv = k.new_empty((self.n_rep, 2) + k.shape)
+                        kv[i, 0], kv[i, 1] = k, v
+                    cache["cross_kv"][f"b{j}"] = kv
+            for r in range(self.n_rem):
+                cache[f"cross_kv_rem{r}"] = torch.stack(self._memory_kv(
+                    params[f"rem{r}"]["cross"], memory))
         return cache
 
     # -- prefill / decode --------------------------------------------------------
     def prefill(self, params: PyTree, batch: dict, cache: PyTree
                 ) -> tuple[torch.Tensor, PyTree]:
-        """Run the prompt through the model, filling the cache. Returns
-        (last-position logits (B, 1, V), cache)."""
-        x = layers.embed(params["embed"], self._tokens(batch))
-        x = self._run(params, x, cache, "prefill")
+        """Run the prompt (after its prefix, if any) through the model,
+        filling the cache. Returns (last-position logits (B, 1, V),
+        cache)."""
+        x = self._embed_inputs(params, batch)
+        x, _ = self._run(params, x, cache, "prefill")
         return layers.unembed(params["embed"], x[:, -1:]), cache
 
     def decode_step(self, params: PyTree, tokens: torch.Tensor,
                     cache: PyTree) -> tuple[torch.Tensor, PyTree]:
         """tokens: (B, 1). Returns (logits (B, 1, V), cache)."""
         x = layers.embed(params["embed"], tokens)
-        x = self._run(params, x, cache, "decode")
+        x, _ = self._run(params, x, cache, "decode")
         return layers.unembed(params["embed"], x), cache

@@ -12,6 +12,7 @@ at different places in the causal conv and gelu).
 import dataclasses
 import functools
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from repro.configs.base import get_arch as jget_arch
+from repro.configs.base import list_archs
 from repro.launch import serve as jserve
 from repro.models import layers as jlayers
 from repro.models import recurrent as jrec
@@ -29,6 +31,7 @@ from repro_torch.configs.base import ArchConfig, get_arch
 from repro_torch.launch import serve as tserve
 from repro_torch.models import layers, recurrent
 from repro_torch.models.transformer import Transformer
+from repro_torch.pytree import tree_leaves_with_path
 
 LAYER_TOL = 2e-5
 LOGIT_TOL = 5e-4
@@ -211,9 +214,10 @@ def test_model_forward_prefill_decode(arch):
     B, P, S = 2, 12, 30
     tokens = np.random.default_rng(7).integers(0, cj.vocab_size, (B, S))
     batch = {"tokens": jnp.asarray(tokens)}
-    want, _ = jax.jit(jm.forward)(jp, batch)
-    got = tm.forward(tp, {"tokens": _t(tokens)})
+    want, want_aux = jax.jit(jm.forward)(jp, batch)
+    got, aux = tm.forward(tp, {"tokens": _t(tokens)})
     _close(got, want, LOGIT_TOL, "forward")
+    assert float(aux) == float(want_aux) == 0.0         # no MoE
 
     jc = jm.init_cache(B, S)
     tc = tm.init_cache(B, S, "cpu")
@@ -236,7 +240,7 @@ def test_model_forward_bf16():
     cj, jm, jp, ct, tm, tp = _model("recurrentgemma-9b", dtype="bfloat16")
     tokens = np.random.default_rng(8).integers(0, cj.vocab_size, (2, 20))
     want, _ = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(tokens)})
-    got = tm.forward(tp, {"tokens": _t(tokens)})
+    got, _ = tm.forward(tp, {"tokens": _t(tokens)})
     assert got.dtype == torch.bfloat16
     _close(got, np.asarray(want, np.float32), 3e-2)
 
@@ -260,11 +264,58 @@ def test_bridge_checks_paths_shapes_dtypes():
                                   tbl.view(np.int16))
 
 
-def test_unported_features_raise():
-    for arch in ("qwen3-moe-30b-a3b", "seamless-m4t-large-v2",
-                 "llava-next-34b"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Transformer(get_arch(arch).reduced())
+@pytest.mark.parametrize("arch", list_archs())
+def test_meta_init_matches_reference(arch):
+    """Every config builds in the port, full and reduced: its meta init
+    is the reference's tree leaf for leaf (paths, shapes, dtypes; from
+    `jax.eval_shape`, nothing allocated) and its analytic param count
+    the reference's (qwen3-moe-30b-a3b: 30,220,746,752)."""
+    for reduce in (False, True):
+        cj = jget_arch(arch).reduced() if reduce else jget_arch(arch)
+        ct = get_arch(arch).reduced() if reduce else get_arch(arch)
+        assert ct.param_count() == cj.param_count()
+        want = jax.eval_shape(JTransformer(cj).init, jax.random.PRNGKey(0))
+        got = Transformer(ct).init(None, "meta")
+        wl = jax.tree.leaves_with_path(want)
+        gl = tree_leaves_with_path(got)
+        assert len(gl) == len(wl)
+        for (wp, w), (gp, g) in zip(wl, gl):
+            assert "/".join(gp) == "/".join(k.key for k in wp)
+            assert tuple(g.shape) == tuple(w.shape), gp
+            assert str(g.dtype).split(".")[1] == str(w.dtype), gp
+            assert g.device.type == "meta"
+    assert get_arch("qwen3-moe-30b-a3b").param_count() == 30_220_746_752
+
+
+@pytest.mark.parametrize("leaf", ["dense", "embedding"])
+def test_chunked_init_draws_the_same_law(leaf, monkeypatch):
+    """`normal_init` draws a leaf larger than DRAW_ELEMENTS in blocks of
+    whole rows: a stacked `dense_init` leaf keeps its shape, dtype and
+    N(0, 1/fan_in) law, an embedding table N(0, 0.01^2), whatever the
+    block; every row is written."""
+    lead, shape, fan_in = (3,), (5, 64, 40), 64
+    full = lead + shape
+    n = math.prod(full)
+    scale = 1.0 / math.sqrt(fan_in) if leaf == "dense" else 0.01
+    dtype = torch.bfloat16 if leaf == "dense" else torch.float32
+
+    def draw(block):
+        monkeypatch.setattr(layers, "DRAW_ELEMENTS", block)
+        gen = torch.Generator().manual_seed(0)
+        if leaf == "dense":
+            return layers.dense_init(gen, shape, fan_in, dtype, "cpu", lead)
+        return layers.normal_init(gen, full, scale, dtype, "cpu")
+
+    for block in (1, 40 * 7, 10_000, n):
+        got = draw(block)
+        assert got.shape == full and got.dtype == dtype
+        z = got.float() / scale
+        assert abs(float(z.mean())) < 0.02
+        assert abs(float(z.std()) - 1.0) < 0.02
+        # every row drawn: no zero row left unwritten
+        assert bool((z.reshape(-1, 40).abs().sum(-1) > 0).all())
+    meta = layers.normal_init(None, full, scale, dtype, "meta")
+    assert meta.shape == full and meta.device.type == "meta"
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,10 @@ mesh driver of `experiments.run`, `launch.train --set`) against the JAX
 package on the CPU, on reduced smollm-360m in f32 with W = 2 workers;
 the loss-and-gradient and the M-DSL-round tests also on reduced
 recurrentgemma-9b (rglru, rglru, swa: the scan's backward) and
-xlstm-350m (mlstm, slstm).
+xlstm-350m (mlstm, slstm), and the M-DSL rounds on reduced
+qwen3-moe-30b-a3b (MoE, its aux loss in the loss) and
+seamless-m4t-large-v2 (the encoder and cross-attention, frames in the
+batches).
 
 Both sides start from the same params (JAX init -> numpy -> bridge) and
 see the same batches; the port takes the JAX key chain's draws (PSO
@@ -19,7 +22,8 @@ softmax and the cross-entropy in other orders):
     step at lr 3e-3 turns into a param difference;
   * selection masks, delivered counts and bytes: exact;
   * the 3-round run's global and worker losses: LOSS_TOL per round;
-  * recurrentgemma-9b and xlstm-350m: the same tolerances. The port's
+  * recurrentgemma-9b, xlstm-350m, qwen3 and seamless: the same
+    tolerances. The port's
     scan is the sequential loop and the reference's the associative scan
     (ROADMAP's known differences): equal in f32 within these bounds, not
     bitwise.
@@ -61,6 +65,7 @@ LOSS_TOL = 5e-6
 PARAM_TOL = 2e-7
 ARCH = "smollm-360m"
 RECURRENT = ["recurrentgemma-9b", "xlstm-350m"]
+MOE_ENCDEC = ["qwen3-moe-30b-a3b", "seamless-m4t-large-v2"]
 
 
 def _f32_arch(name):
@@ -93,14 +98,20 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _batches(seed, vocab, lead):
-    toks = np.random.default_rng(seed).integers(0, vocab, lead + (B, S))
-    toks = toks.astype(np.int32)
-    return {"tokens": toks, "labels": np.roll(toks, -1, axis=-1)}
+def _batches(seed, vocab, lead, cfg=None):
+    """Tokens and labels; with `cfg`, also the encoder frames it takes."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, lead + (B, S)).astype(np.int32)
+    out = {"tokens": toks, "labels": np.roll(toks, -1, axis=-1)}
+    if cfg is not None and cfg.encoder_layers:
+        out["frames"] = rng.standard_normal(
+            lead + (B, cfg.encoder_memory_len, cfg.d_model)).astype(np.float32)
+    return out
 
 
 def _torch_batch(b):
-    return {k: _t(v).to(torch.int64) for k, v in b.items()}
+    return {k: _t(v).to(torch.int64) if v.dtype.kind == "i" else _t(v)
+            for k, v in b.items()}
 
 
 def jax_dist_draws(key, comm, params, num_workers, algorithm):
@@ -221,6 +232,13 @@ def test_recurrent_mdsl_rounds_match_reference(arch):
     _mdsl_rounds_match(*_models(arch))
 
 
+@pytest.mark.parametrize("arch", MOE_ENCDEC)
+def test_moe_encdec_mdsl_rounds_match_reference(arch):
+    """Reduced qwen3 (MoE at cf 1.25, the aux in the loss) and seamless
+    (the encoder's frames in every batch)."""
+    _mdsl_rounds_match(*_models(arch))
+
+
 def _mdsl_rounds_match(jm, jp, tm, tp):
     jcfg = jswarm.DistSwarmConfig(worker_axes=(), num_spatial=W)
     tcfg = swarm_dist.DistSwarmConfig(num_spatial=W)
@@ -229,8 +247,8 @@ def _mdsl_rounds_match(jm, jp, tm, tp):
     js, ts = jswarm.init_state(jp, jcfg), swarm_dist.init_state(tp, tcfg)
     for r in range(2):
         key = jax.random.PRNGKey(100 + r)
-        b, e = (_batches(10 + 2 * r, jm.cfg.vocab_size, (W,)),
-                _batches(11 + 2 * r, jm.cfg.vocab_size, ()))
+        b, e = (_batches(10 + 2 * r, jm.cfg.vocab_size, (W,), jm.cfg),
+                _batches(11 + 2 * r, jm.cfg.vocab_size, (), jm.cfg))
         js, ji = jstep(js, {k: jnp.asarray(v) for k, v in b.items()},
                        {k: jnp.asarray(v) for k, v in e.items()}, key)
         ts, ti = tstep(ts, _torch_batch(b), _torch_batch(e),
