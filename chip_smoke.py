@@ -259,12 +259,30 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      forward 2 x 4 and backward 2 x 1, pso_update once a leaf, the _f32
      counters never; losses, global params and the aux finite, the aux
      > 0; seconds a round and peak memory;
- 37. prints the card line, the `kernels` JSON line (each row with its
+ 37. the sharded mesh path (`launch/steps`, `sharding/*`, DTensor over
+     a one-rank NCCL group's 1 x 1 ("data", "model") mesh):
+     `build_step` for one M-DSL round of SmolLM-360M at full width (bf16,
+     one worker, B 2, S 2048), every leaf placed as a DTensor whose shard
+     is the tensor itself: the round's state and telemetry bitwise the
+     one-process `swarm_dist` round's on the same state and draws; its
+     launches as `mesh_launches_per_round` at W 1; s a round, peak;
+ 38. `build_serve_step` prefill and decode of Qwen3-MoE-30B-A3B at full
+     width and depth on phase 31's weights (placed with no copy; run
+     right after phase 31, whose weights the card holds then): greedy
+     tokens equal to `launch.serve.generate`'s on the same prompts, the
+     forward once a layer in the prefill, a peak within 1 GiB of phase
+     31's; prefill s, decode tok/s;
+ 39. one Qwen3-MoE layer at full width (128 experts top 8, d 2048, bf16,
+     tokens (4, 4096)) through `moe_ep`'s stages for 4 virtual shards:
+     dropless within 2 bf16 ulps of the dense dispatch, the aux within
+     1e-5; at the config's capacity factor both paths' drops printed;
+ 40. prints the card line, the `kernels` JSON line (each row with its
      share of bound = bound_ms / ms; each kernel's first row with its
      launches in the int4 straggler run, the int4 population run, the
      mesh straggler run, the obs run, the mesh checkpoint run, the
      sweep's cells (phase 20), the per-step Eq.-8 run, phase 25's
-     training rounds, phase 28's xLSTM rounds and phases 31-36's runs;
+     training rounds, phase 28's xLSTM rounds, phases 31-36's runs and
+     phases 37-38's;
      each flash row with its cores,
      the CUDA-core kernel's and the f32 path's times; a row of the
      forward at the mesh shape, rows of quant_pack_ef, wire_agg and
@@ -303,7 +321,7 @@ terms in the other order, which is exact for two terms). The small
 training check (phase 24): phase 10's. The small xLSTM serve (phase 26)
 and the small MoE, encoder-decoder and prefix serves (phases 30 and 33):
 logits within 5e-4, greedy tokens equal. Phase 29's flash cases: phases
-6 and 9's rules. Every timing line of phases 13-28 and 31-36 carries the card's
+6 and 9's rules. Every timing line of phases 13-28 and 31-39 carries the card's
 name and power limit.
 """
 import json
@@ -1953,7 +1971,10 @@ def straggler_small_spec():
                     "comm.quorum=3")
     base = dataclasses.replace(base, comm=base.comm._replace(fading="none"))
     comm = base.comm
-    params = paper_cnn(MNIST_LIKE, 2).init(torch.Generator().manual_seed(0))
+    # the host's copy: only its leaf sizes enter the airtime (the payload
+    # bytes), and the CPU draw keeps the deadline the run's own
+    params = paper_cnn(MNIST_LIKE, 2, device="cpu").init(
+        torch.Generator().manual_seed(0))
     air = budget.worker_airtime_s(
         comm, budget.worker_payload_bytes(comm, params, 4),
         phy.init_state(comm, 4).snr_db)
@@ -3375,6 +3396,365 @@ def moe_train_rounds(dev, card: str) -> dict:
         35, "hd 128", card)
 
 
+# this slice: the sharded mesh path on a one-rank mesh (phases 37-39)
+MESH_NAMES = ("data", "model")
+STEP_B, STEP_S = 2, 2048        # phase 37: one worker (a 1 x 1 mesh), B 2
+MOE_MESH_GEN = 8                # phase 38: greedy tokens a request
+EP_SHARDS, EP_B, EP_S = 4, 4, 4096   # phase 39: one layer, n virtual shards
+
+
+def one_rank_mesh(dev):
+    """A one-rank process group (NCCL, its FileStore under build/) and
+    its 1 x 1 ("data", "model") DeviceMesh on the card."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        torch.cuda.set_device(dev)
+        store = ROOT / "build" / "chip_smoke_pg_store"
+        store.parent.mkdir(parents=True, exist_ok=True)
+        store.unlink(missing_ok=True)
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=0, world_size=1, device_id=dev)
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=MESH_NAMES)
+
+
+def full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def mesh_step_path(dev, card: str) -> dict:
+    """Phase 37: `launch.steps.build_step` for one M-DSL round of
+    SmolLM-360M at full width (bf16, B 2, S 2048: one worker on the 1 x 1
+    mesh), every state and batch leaf a DTensor (`steps.place`, shards
+    that are the tensors themselves), counts reset just before the round
+    and read just after; then the port's one-process
+    `swarm_dist.build_train_step` on the same state, batches and draws:
+    the round's state and telemetry bitwise equal. Returns the counts."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import swarm_dist
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.launch import steps
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.sharding import boundary
+
+    mesh = one_rank_mesh(dev)
+    cfg = get_arch(MESH_ARCH)
+    built = steps.build_step(cfg, InputShape("train", STEP_S, STEP_B,
+                                             "train"), mesh)
+    dcfg, model = built.meta["dcfg"], built.meta["model"]
+    check(dcfg.num_spatial == 1 and dcfg.worker_axes == ("data",),
+          f"phase 37: {dcfg.num_spatial} workers over {dcfg.worker_axes}")
+    gen = torch.Generator(device=dev).manual_seed(37)
+    params = model.init(gen, dev)
+    state = swarm_dist.init_state(params, dcfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, STEP_B, STEP_S),
+                         generator=gen, device=dev)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+    et = torch.randint(0, cfg.vocab_size, (steps.EVAL_BATCH, STEP_S),
+                       generator=gen, device=dev)
+    ev = {"tokens": et, "labels": torch.roll(et, -1, dims=-1)}
+    draws = swarm_dist.sample_draws(gen, dcfg, params, dev, 0)
+    lay = built.layouts
+    st = steps.place(state, lay[0], mesh)
+    check(all(a.to_local().data_ptr() == b.data_ptr() for a, b in zip(
+        tree_leaves(st.params), tree_leaves(state.params))),
+        "phase 37: placing the state copied it")
+    args = (st, steps.place(batch, lay[1], mesh), steps.place(ev, lay[2],
+                                                              mesh), draws)
+    # one untimed round first (DTensor's sharding-propagation caches and
+    # first dispatch), so that both rounds timed below are warm
+    warm = built.fn(*args)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_counts()
+    boundary.reset_redistributions()
+    t0 = time.perf_counter()
+    ns, info = built.fn(*args)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = runtime.counts()
+    redis = boundary.redistributions()
+    peak = torch.cuda.max_memory_allocated()
+    plain = swarm_dist.build_train_step(
+        model.loss, dcfg._replace(worker_axes=()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, pinfo = plain(state, batch, ev, draws)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    n_leaves = len(tree_leaves(params))
+    diffs = []
+    for field in ("params", "velocity", "best_params", "global_params",
+                  "gbest_params", "residual", "ps_residual", "best_loss",
+                  "gbest_loss", "prev_theta_mean"):
+        for a, b in zip(tree_leaves(getattr(ns, field)),
+                        tree_leaves(getattr(ps, field))):
+            if not torch.equal(full(a), b):
+                diffs.append((field, float((full(a).float() - b.float())
+                                           .abs().max())))
+    for field in ("losses", "theta", "mask", "global_loss", "bytes_up"):
+        if not torch.equal(full(getattr(info, field)),
+                           getattr(pinfo, field)):
+            diffs.append((field, None))
+    want = mesh_launches_per_round(cfg, n_leaves, W=1)
+    print(f"[mesh-steps] build_step train, {MESH_ARCH} full width (bf16, "
+          f"W 1 on the 1 x 1 mesh, B {STEP_B}, S {STEP_S}): {step_s:.4f} s "
+          f"a warm round (after one untimed; the one-process round after "
+          f"it {plain_s:.4f} s), peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{counts}; inputs gathered to Replicate at the kernel boundary "
+          f"{redis}; against the one-process round: "
+          f"{'bitwise' if not diffs else diffs}; global loss "
+          f"{float(full(info.global_loss)):.5f} ({card})", flush=True)
+    print(f"[mesh-steps] launch/mesh.py's CHIP_HBM_BYTES "
+          f"{launch_mesh.CHIP_HBM_BYTES}, this card's total_memory "
+          f"{torch.cuda.get_device_properties(0).total_memory} ({card})",
+          flush=True)
+    check(not diffs, f"phase 37: the mesh round differs from the "
+                     f"one-process round: {diffs}")
+    check(counts == want, f"phase 37 launched {counts}, expected {want}")
+    check(bool(torch.isfinite(full(info.global_loss))),
+          "phase 37: global loss not finite")
+    del ns, ps, st, state, params, args
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_serve_path(dev, card: str, model, params, peak31: int) -> dict:
+    """Phase 38: `launch.steps.build_serve_step` prefill and decode for
+    Qwen3-MoE-30B-A3B at full width and depth on the 1 x 1 mesh, on
+    phase 31's weights placed with no second copy (each DTensor's shard is
+    the weight itself): greedy tokens of MOE_MESH_GEN steps equal to
+    `launch.serve.generate`'s on the same prompts (batch 4, prompt 4096);
+    prefill s, decode tok/s, launches (the forward once a layer in the
+    prefill), and a peak within 1 GiB of phase 31's. Returns the mesh
+    path's counts."""
+    import gc
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import generate, make_request_batch
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.sharding import boundary
+
+    mesh = one_rank_mesh(dev)
+    cfg, G = model.cfg, MOE_MESH_GEN
+    gen = torch.Generator(device=dev).manual_seed(38)
+    tokens = make_request_batch(gen, cfg, BIG_BATCH, BIG_PROMPT,
+                                dev)["tokens"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = generate(model, params, tokens, G)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the mesh path's own peak, from here on
+    torch.cuda.reset_peak_memory_stats()
+    pre = steps.build_step(cfg, InputShape("prefill", BIG_PROMPT, BIG_BATCH,
+                                           "prefill"), mesh)
+    dec = steps.build_step(cfg, InputShape("decode", BIG_PROMPT + G,
+                                           BIG_BATCH, "decode"), mesh)
+    check(pre.cfg == cfg, "phase 38: the mesh step changed the config")
+    pp = steps.place(params, pre.layouts[0], mesh)
+    check(all(a.to_local().data_ptr() == b.data_ptr() for a, b in zip(
+        tree_leaves(pp), tree_leaves(params))),
+        "phase 38: placing the weights copied them")
+    with torch.no_grad():
+        cache = steps.place(model.init_cache(BIG_BATCH, BIG_PROMPT + G, dev),
+                            dec.layouts[2], mesh)
+        batch = steps.place({"tokens": tokens}, pre.layouts[1], mesh)
+        # one untimed prefill and decode step first (DTensor's caches and
+        # first dispatch): each writes the cache rows the timed ones write
+        # again with the same values, and `pos` lives in the returned cache
+        _, warm = pre.fn(pp, batch, cache)
+        dec.fn(pp, steps.place(tokens[:, -1:], dec.layouts[1], mesh), warm)
+        del warm
+        torch.cuda.synchronize()
+        runtime.reset_counts()
+        boundary.reset_redistributions()
+        t0 = time.perf_counter()
+        logits, cache = pre.fn(pp, batch, cache)
+        tok = torch.argmax(full(logits)[:, -1], dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        c_prefill = runtime.counts()
+        out = [tok]
+        t0 = time.perf_counter()
+        for _ in range(G - 1):
+            logits, cache = dec.fn(pp, steps.place(tok, dec.layouts[1],
+                                                   mesh), cache)
+            tok = torch.argmax(full(logits)[:, -1], dim=-1, keepdim=True)
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    counts = runtime.counts()
+    redis = boundary.redistributions()
+    peak = torch.cuda.max_memory_allocated()
+    got = torch.cat(out, dim=1)
+    print(f"[mesh-serve] build_serve_step, {MOE_ARCH} full width and depth "
+          f"on the 1 x 1 mesh (phase 31's weights, no copy), B={BIG_BATCH} "
+          f"prompt {BIG_PROMPT} gen {G}, warm (after one untimed prefill "
+          f"and decode step): prefill {prefill_s:.4f} s "
+          f"({BIG_BATCH * BIG_PROMPT / prefill_s:.1f} tok/s), decode "
+          f"{decode_s:.4f} s for {G - 1} steps "
+          f"({BIG_BATCH * (G - 1) / decode_s:.2f} tok/s; launch/serve's "
+          f"generate on the same prompts: prefill {want.prefill_s:.4f} s, "
+          f"{BIG_BATCH * (G - 1) / want.decode_s:.2f} tok/s), the mesh "
+          f"path's peak memory {peak / 2**30:.2f} GiB (phase 31: "
+          f"{peak31 / 2**30:.2f}); "
+          f"launches {counts} (prefill {c_prefill}); gathered at the kernel "
+          f"boundary {redis}; greedy tokens "
+          f"{'equal' if torch.equal(got, want.tokens) else 'DIFFER'} "
+          f"({got[0].tolist()}) ({card})", flush=True)
+    check(torch.equal(got, want.tokens),
+          f"phase 38: greedy tokens {got.tolist()} against launch/serve's "
+          f"{want.tokens.tolist()}")
+    check(counts == {"flash_attention": cfg.num_layers},
+          f"phase 38 launched {counts}, expected the forward "
+          f"{cfg.num_layers} times")
+    check(abs(peak - peak31) <= 2**30,
+          f"phase 38: peak {peak / 2**30:.2f} GiB, phase 31's "
+          f"{peak31 / 2**30:.2f}")
+    del pp, cache, logits, want
+    return counts
+
+
+def ep_virtual(params, h, cfg, n):
+    """`moe_ep.moe_apply_ep`'s arithmetic for n expert shards in one
+    process: each stage per shard, the exchanges as a tiled all-to-all
+    (`buf.view(n, n, cap, ...).transpose(0, 1)`). Returns (y, aux, picks
+    dropped at the send stage, picks dropped at the local stage)."""
+    import torch
+    from repro_torch.models import moe_ep
+    B, S, D = h.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    El, T = E // n, B * S
+    cap_send, cap_local = moe_ep.capacities(T, cfg, n)
+    hs = [x.reshape(-1, D) for x in h.chunk(n)]
+    routes = [moe_ep.route(x, params["router"], K) for x in hs]
+    aux = moe_ep.aux_loss(sum(moe_ep.aux_stats(p, i, E) for p, _, i in
+                              routes), T, cfg)
+    packs = [moe_ep.pack_send(x, i, El, n, cap_send)
+             for x, (_, _, i) in zip(hs, routes)]
+    send_drops = sum(int((slot == n * cap_send).sum()) for _, slot in packs)
+
+    def exchange(bufs):
+        st = torch.stack(bufs)
+        return list(st.view((n, n) + tuple(st.shape[2:])).transpose(0, 1))
+
+    rx, re, rv = (exchange([p[k] for p, _ in packs]) for k in "xev")
+    local_drops = 0
+    backs = []
+    for s in range(n):
+        e = re[s].reshape(-1) - s * El
+        got = torch.zeros(El, dtype=torch.int64, device=h.device)
+        got.scatter_add_(0, e.clamp(0, El - 1),
+                         (rv[s].reshape(-1) > 0).to(torch.int64))
+        local_drops += int((got - cap_local).clamp_min(0).sum())
+        sl = slice(s * El, (s + 1) * El)
+        backs.append(moe_ep.expert_ffn(
+            rx[s].reshape(n * cap_send, D), re[s].reshape(-1),
+            rv[s].reshape(-1), s, El, cap_local, params["wi"][sl],
+            params["wu"][sl], params["wo"][sl]))
+    origin = exchange([b.view(n, cap_send, D) for b in backs])
+    ys = [moe_ep.combine(origin[s].reshape(n * cap_send, D), packs[s][1],
+                         routes[s][1], h.dtype) for s in range(n)]
+    return torch.cat(ys).view(B, S, D), aux, send_drops, local_drops
+
+
+def ep_layer_check(dev, card: str) -> None:
+    """Phase 39: one Qwen3-MoE layer at full width (128 experts, top 8,
+    d 2048, f 768, bf16; tokens (4, 4096)) through the EP stages for
+    EP_SHARDS virtual shards on the card. Dropless (cf = E / K): y
+    within 2 bf16 ulps of the dense `moe_apply`'s, the ulp taken at each
+    token's largest |y| (y is an f32 sum over the K picks of bf16 expert
+    rows, each rounded once: the two paths' expert products run as
+    batches of 32 and of 128 experts, whose GEMMs may round an element
+    of a row one ulp apart, which moves y by an ulp of the rows' scale,
+    not of the element), the aux within 1e-5 of it relatively. At the
+    config's own capacity factor both paths' drops printed: EP drops at
+    two capacities by design (random tokens load the experts evenly and
+    drop nothing there, so also tokens sharing one direction, which
+    route most picks to the same few experts)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe, moe_ep
+    from repro_torch.models.layers import rmsnorm
+
+    cfg = get_arch(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(39)
+    params = moe.moe_init(gen, cfg, dev)
+    x0 = torch.randn((EP_B, EP_S, cfg.d_model), generator=gen, device=dev,
+                     dtype=torch.float32)
+    u = torch.randn((cfg.d_model,), generator=gen, device=dev)
+    E, K, T = cfg.num_experts, cfg.experts_per_token, EP_B * EP_S
+    runs = [("random", float(E // K), x0),
+            ("random", cfg.moe_capacity_factor, x0),
+            ("sharing a direction", cfg.moe_capacity_factor, x0 + 4.0 * u)]
+    for tokens, cf, xf in runs:
+        x = xf.to(torch.bfloat16)
+        h = rmsnorm(params["norm"], x, cfg.norm_eps)
+        _, _, idx = moe_ep.route(h.reshape(T, -1), params["router"], K)
+        counts = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+            0, idx.reshape(-1), torch.ones(T * K, dtype=torch.int64,
+                                           device=dev))
+        with torch.no_grad():
+            c = dataclasses.replace(cfg, moe_capacity_factor=cf)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            yd, auxd = moe.moe_apply(params, x, c)
+            torch.cuda.synchronize()
+            dense_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            ye, auxe, send_drops, local_drops = ep_virtual(params, h, c,
+                                                           EP_SHARDS)
+            torch.cuda.synchronize()
+            ep_ms = (time.perf_counter() - t0) * 1e3
+            dense_drops = int((counts - moe.capacity(T, c)).clamp_min(0)
+                              .sum())
+            yd32, ye32 = yd.float(), ye.float()
+            diff = (ye32 - yd32).abs()
+            row = yd32.abs().amax(dim=-1, keepdim=True)
+            ulps = float((diff / bf16_ulp(row)).max())
+            n_diff = int((diff > 0).sum())
+            rel = abs(float(auxe) - float(auxd)) / float(auxd)
+            cap_send, cap_local = moe_ep.capacities(T, c, EP_SHARDS)
+            print(f"[moe-ep] one {MOE_ARCH} layer, {tokens} tokens "
+                  f"({EP_B}, {EP_S}), {EP_SHARDS} virtual shards, cf {cf}: "
+                  f"dense capacity "
+                  f"{moe.capacity(T, c)}, EP send {cap_send} and local "
+                  f"{cap_local}; drops dense {dense_drops}, EP "
+                  f"{send_drops} at the send and {local_drops} at the local "
+                  f"stage; y max {float(diff.max()):.3e} at max |y| "
+                  f"{float(yd32.abs().max()):.3f}, {n_diff} of "
+                  f"{diff.numel()} elements differ, {ulps:.2f} bf16 ulps "
+                  f"of the token's largest |y|; aux {float(auxe):.6f} "
+                  f"against "
+                  f"{float(auxd):.6f} (rel {rel:.2e}); eager {ep_ms:.1f} ms "
+                  f"against the dense {dense_ms:.1f} ms ({card})",
+                  flush=True)
+            check(bool(torch.isfinite(ye32).all()), "phase 39: y not finite")
+            if tokens == "sharing a direction":
+                check(dense_drops > 0 and send_drops + local_drops > 0,
+                      "phase 39: no drops with the tokens sharing a "
+                      "direction")
+            if cf == float(E // K):
+                check(dense_drops == send_drops == local_drops == 0,
+                      "phase 39: dropless dropped picks")
+                check(ulps <= 2.0, f"phase 39: EP y {ulps:.2f} bf16 ulps "
+                                   f"from the dense dispatch")
+                check(rel <= 1e-5, f"phase 39: aux rel diff {rel:.2e}")
+            del yd, ye, yd32, ye32, diff, row
+    del params, x, x0, h
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3493,7 +3873,11 @@ def main() -> None:
                                     f"expected {small_moe}")
     moe_rec, moe_serve_counts, model, params = big_serve(
         dev, card, MOE_ARCH, 31, 48, 0)
+    moe_peak = torch.cuda.max_memory_allocated()
     profile_moe_prefill(dev, card, model, params)
+    t1 = time.perf_counter()
+    mesh_serve_counts = mesh_serve_path(dev, card, model, params, moe_peak)
+    mesh_time = time.perf_counter() - t1
     del model, params
     _, arctic_counts, model, params = big_serve(
         dev, card, ARCTIC_ARCH, 32, ARCTIC_LAYERS, 0, layers=ARCTIC_LAYERS)
@@ -3518,7 +3902,18 @@ def main() -> None:
     moe_train_counts = moe_train_rounds(dev, card)
     print(f"[time] phases 29-36 (this slice's flash cases, MoE, the encoder "
           f"with cross-attention, prefix inputs): "
-          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+          f"{time.perf_counter() - t0 - mesh_time:.1f} s ({card})",
+          flush=True)
+
+    t0 = time.perf_counter()
+    mesh_step_counts = mesh_step_path(dev, card)
+    ep_layer_check(dev, card)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    print(f"[time] phases 37-39 (the sharded mesh path: build_step's round, "
+          f"the mesh serve, EP at Qwen3's layer width): "
+          f"{time.perf_counter() - t0 + mesh_time:.1f} s ({card})",
+          flush=True)
 
     src = {"quant_pack_ef": ("quant_pack",
                              "src/repro/kernels/quant_pack/quant_pack.py:172"),
@@ -3744,6 +4139,12 @@ def main() -> None:
         path="Qwen3-MoE training, depth cut to 2 layers (phase 36)",
         cuda_core_ms=None, f32_ms=None, library_fwd_bwd_ms=None,
         **new_bwd_row))
+    # this slice: each kernel's launches on the sharded mesh path (phase
+    # 37's build_step round, phase 38's mesh serve) on its first row
+    for k in kernels:
+        if " (" not in k["name"]:
+            k["launches_mesh_steps"] = mesh_step_counts.get(k["name"], 0)
+            k["launches_mesh_serve"] = mesh_serve_counts.get(k["name"], 0)
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(card, flush=True)

@@ -4,11 +4,11 @@ from repro_torch.data.synthetic import CIFAR_LIKE, MNIST_LIKE
 from repro_torch.models.cnn import make_cnn5, make_resnet
 
 
-def paper_cnn(spec=MNIST_LIKE, width_mult: int = 8, device="cpu"):
+def paper_cnn(spec=MNIST_LIKE, width_mult: int = 8, device=None):
     return make_cnn5(spec.height, spec.width, spec.channels,
                      spec.num_classes, width_mult, device=device)
 
 
-def paper_resnet(spec=CIFAR_LIKE, width_mult: int = 8, device="cpu"):
+def paper_resnet(spec=CIFAR_LIKE, width_mult: int = 8, device=None):
     return make_resnet(spec.height, spec.width, spec.channels,
                        spec.num_classes, width_mult, device=device)

@@ -78,6 +78,19 @@ def init_table(comm: CommConfig, population: int,
                            last_evolved=neg1.clone())
 
 
+def table_specs(population: int) -> PopulationTable:
+    """Meta-device stand-ins for one table (the mesh path prices and
+    places a P-device registry without allocating P-sized buffers)."""
+    f32 = lambda: torch.empty((population,), dtype=torch.float32,
+                              device="meta")
+    i32 = lambda: torch.empty((population,), dtype=torch.int32,
+                              device="meta")
+    return PopulationTable(
+        phy=PhyState(h_re=f32(), h_im=f32(), pathloss_db=f32(),
+                     snr_db=f32(), age=i32()),
+        ef_norm=f32(), score=f32(), last_seen=i32(), last_evolved=i32())
+
+
 def table_bytes(table: PopulationTable) -> int:
     """The registry's footprint in bytes."""
     return int(sum(x.numel() * x.element_size()

@@ -321,26 +321,33 @@ def wire_round(comm: CommConfig, *, delta: PyTree, theta: torch.Tensor,
 # the paper engine keeps its WorkerState-shaped pso.update_*_best)
 # ---------------------------------------------------------------------------
 
+def where_rows(cond: torch.Tensor, new: torch.Tensor,
+               old: torch.Tensor) -> torch.Tensor:
+    """Per worker: new where cond (W,), else old."""
+    return torch.where(cond.reshape((-1,) + (1,) * (new.ndim - 1)), new,
+                       old)
+
+
 def track_local_best(best_params: PyTree, best_loss: torch.Tensor,
-                     params: PyTree, losses: torch.Tensor
+                     params: PyTree, losses: torch.Tensor, *,
+                     where: Callable = where_rows
                      ) -> tuple[PyTree, torch.Tensor]:
-    """Eq. 9 over stacked workers: keep each worker's best-F params."""
+    """Eq. 9 over stacked workers: keep each worker's best-F params.
+    `where(improved, new, old)` picks the rows of a stacked leaf (a mesh
+    engine passes its layout's)."""
     improved = losses < best_loss
-
-    def leaf(n, o):
-        return torch.where(improved.reshape((-1,) + (1,) * (n.ndim - 1)),
-                           n, o)
-
-    return (tree_map(leaf, params, best_params),
+    return (tree_map(lambda n, o: where(improved, n, o), params,
+                     best_params),
             torch.where(improved, losses, best_loss))
 
 
 def track_global_best(gbest_params: PyTree, gbest_loss: torch.Tensor,
-                      params: PyTree, loss: torch.Tensor
+                      params: PyTree, loss: torch.Tensor, *,
+                      where: Callable = torch.where
                       ) -> tuple[PyTree, torch.Tensor]:
     """Eq. 10: keep the best global model seen so far."""
     improved = loss < gbest_loss
-    return (tree_map(lambda n, o: torch.where(improved, n, o), params,
+    return (tree_map(lambda n, o: where(improved, n, o), params,
                      gbest_params),
             torch.minimum(loss, gbest_loss))
 

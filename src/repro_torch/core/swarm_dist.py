@@ -26,14 +26,32 @@ How the port differs from the reference:
 - The straggler engine's buffer is f32 whatever the model's dtype and
   is aggregated leaf by leaf (`comm.straggler.aggregate_and_drain`), as
   the reference does.
-- One device: the reference's worker-axis sharding is not ported, and
-  `round_idx` is a host int.
+- `round_idx` is a host int.
+
+One round body (`_round`) serves one process and a mesh; a `_Fleet`
+says how the stacks are laid out. On a mesh (`_MeshFleet`: the state's
+leaves DTensors, placed by `launch/steps`), the worker dim of the
+(W, ...) state and batch is sharded over `cfg.worker_axes`, the
+analogue of the reference's `spmd_axis_name`:
+each rank runs its own workers, one at a time, on `to_local()` views
+(indexing a worker-sharded DTensor would gather the whole stack), each
+replica a DTensor over the remaining mesh axes (tensor parallelism, FSDP
+through `sharding.shard`). What needs every worker goes through
+collectives over the worker axes: the losses (and so theta and the
+selection), the Eq.-7 aggregate and gbest. The wire runs on the state's
+own layout, so that no rank gathers the whole model: the dense and
+straggler routes gather the deltas, residuals and parked deltas over
+the worker axes only and aggregate on each rank's model shards; on the
+packed route the rank packs its workers and `wire_agg` runs on every
+rank over the all-gathered uint8 payloads and scales, a leaf at a time.
+Either way the aggregate is bitwise the one-rank one.
 
 `fedavg_train_step` is the same pipeline with the all-ones selection
 stage and plain-SGD local deltas from the global model.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -50,6 +68,8 @@ from repro_torch.core.rounds import RoundTelemetry
 from repro_torch.kernels.pso_update.ops import pso_update
 from repro_torch.pytree import (tree_flatten, tree_leaves, tree_map,
                                 tree_unflatten)
+from repro_torch.sharding import boundary
+from repro_torch.sharding.rules import axis_names, is_dtensor
 
 PyTree = Any
 LossFn = Callable[[PyTree, dict], torch.Tensor]
@@ -65,6 +85,9 @@ class DistSwarmConfig(NamedTuple):
     # batch / microbatches
     microbatches: int = 1
     comm: CommConfig = CommConfig()  # wire: compression/channel/aggregation
+    # mesh axes the worker dim is sharded over on a mesh (() on one
+    # device, and in fsdp mode: one spatial worker)
+    worker_axes: tuple = ()
 
 
 class DistSwarmState(NamedTuple):
@@ -143,42 +166,6 @@ def _grad_fn(loss_fn: LossFn) -> Callable:
     return grad_fn
 
 
-def _worker(tree: PyTree, w: int) -> PyTree:
-    return tree_map(lambda x: x[w], tree)
-
-
-def _local_deltas(grad_fn: Callable, cfg: DistSwarmConfig,
-                  start: Callable[[int], PyTree], batch: dict,
-                  lr: float, like: PyTree) -> PyTree:
-    """(W, ...) stacked d_w = SGD^local_steps(w0_w) - w0_w, one worker at
-    a time; start(w) is worker w's w0, `like` one worker's tree."""
-    W = cfg.num_spatial
-    deltas = tree_map(lambda x: torch.empty((W,) + tuple(x.shape),
-                                            dtype=x.dtype, device=x.device),
-                      like)
-    for w in range(W):
-        w0 = start(w)
-        p, b = w0, _worker(batch, w)
-        for _ in range(cfg.local_steps):
-            g = rounds.accumulated_grad(grad_fn, p, b, cfg.microbatches)
-            p = pso.sgd_step(p, g, lr)
-            del g
-        tree_map(lambda out, t, s: torch.sub(t, s, out=out[w]), deltas, p,
-                 w0)
-        del p
-    return deltas
-
-
-def _eval(loss_fn: LossFn, params: PyTree, eval_batch: dict,
-          stacked: bool) -> torch.Tensor:
-    with torch.no_grad():
-        if not stacked:
-            return loss_fn(params, eval_batch)
-        W = tree_leaves(params)[0].shape[0]
-        return torch.stack([loss_fn(_worker(params, w), eval_batch)
-                            for w in range(W)])
-
-
 def _eq8_coefs(coeffs: torch.Tensor, clip: float) -> torch.Tensor:
     """(W, 3) PSO draws -> the kernel's (W, 4) f32 rows (c0, c1, c2,
     clip)."""
@@ -193,121 +180,326 @@ def build_train_step(loss_fn: LossFn, cfg: DistSwarmConfig
     """loss_fn(params, batch) -> scalar. Returns
     train_step(state, batch, eval_batch, draws) where every leaf of
     `batch` has a leading worker dim W and `draws` is the round's
-    RoundDraws."""
+    RoundDraws (the whole fleet's, the same on every rank of a mesh)."""
     grad_fn = _grad_fn(loss_fn)
-
-    def train_step(state: DistSwarmState, batch: dict, eval_batch: dict,
-                   draws: RoundDraws
-                   ) -> tuple[DistSwarmState, RoundTelemetry]:
-        pipe = _pipeline(cfg, "mdsl", state.global_params)
-        lr = pso.decayed_lr(cfg.hp, state.round_idx)
-        with rounds.stage_span("LocalUpdate"):
-            # local SGD steps, then Eq. 8 over the stacked state: one
-            # fused kernel launch per leaf for all W workers
-            deltas = _local_deltas(
-                grad_fn, cfg, lambda w: _worker(state.params, w), batch, lr,
-                state.global_params)
-            coefs = _eq8_coefs(draws.coeffs, cfg.hp.velocity_clip)
-            leaves, treedef = tree_flatten(state.params)
-            updated = [pso_update(coefs, *xs) for xs in zip(
-                leaves, *(tree_leaves(t) for t in (
-                    state.velocity, state.best_params, state.gbest_params,
-                    deltas)))]
-            del deltas
-            new_params = tree_unflatten(treedef, [u[0] for u in updated])
-            new_vel = tree_unflatten(treedef, [u[1] for u in updated])
-            del updated
-            # Byzantine workers' local updates are adversarial: the
-            # corruption lands in their params so Eq. 6 can reject them
-            new_params = comm_channel.corrupt_local_updates(
-                cfg.comm, state.params, new_params, draws.byz_noise)
-            losses = _eval(loss_fn, new_params, eval_batch, stacked=True)
-
-        # --- ScoreSelect (Eqs. 5-6) ---
-        theta, mask, theta_mean = pipe.select(losses, state.eta,
-                                              state.prev_theta_mean)
-
-        # --- Uplink -> Aggregate -> Downlink (Eq. 7 through the wire) ---
-        delta = tree_map(lambda a, b: a - b, new_params, state.params)
-        out = pipe.wire(delta=delta, theta=theta, mask=mask,
-                        global_params=state.global_params,
-                        residual=state.residual,
-                        ps_residual=state.ps_residual, draws=draws,
-                        phy=state.phy, buffer=state.buffer)
-        del delta
-        global_loss = _eval(loss_fn, out.global_params, eval_batch,
-                            stacked=False)
-
-        # --- BestTracking (Eqs. 9-10) ---
-        with rounds.stage_span("BestTracking"):
-            best_params, best_loss = rounds.track_local_best(
-                state.best_params, state.best_loss, new_params, losses)
-            gbest_params, gbest_loss = rounds.track_global_best(
-                state.gbest_params, state.gbest_loss, out.global_params,
-                global_loss)
-
-        next_state = DistSwarmState(
-            params=new_params, velocity=new_vel, best_params=best_params,
-            best_loss=best_loss, global_params=out.global_params,
-            gbest_params=gbest_params, gbest_loss=gbest_loss,
-            prev_theta_mean=theta_mean, eta=state.eta,
-            round_idx=state.round_idx + 1, residual=out.residual,
-            ps_residual=out.ps_residual, phy=out.phy, buffer=out.buffer)
-        return next_state, pipe.telemetry(losses=losses, theta=theta,
-                                          mask=mask,
-                                          global_loss=global_loss,
-                                          outcome=out)
-
-    return train_step
+    return lambda state, batch, eval_batch, draws: _round(
+        loss_fn, grad_fn, cfg, "mdsl", state, batch, eval_batch, draws)
 
 
 def fedavg_train_step(loss_fn: LossFn, cfg: DistSwarmConfig):
     """Baseline: plain FedAvg round (all workers, SGD only) — the same
-    pipeline with the all-ones selection stage."""
+    pipeline with the all-ones selection stage and plain-SGD deltas from
+    the global model."""
     grad_fn = _grad_fn(loss_fn)
-    W = cfg.num_spatial
+    return lambda state, batch, eval_batch, draws: _round(
+        loss_fn, grad_fn, cfg, "fedavg", state, batch, eval_batch, draws)
 
-    def train_step(state: DistSwarmState, batch: dict, eval_batch: dict,
-                   draws: RoundDraws
-                   ) -> tuple[DistSwarmState, RoundTelemetry]:
-        pipe = _pipeline(cfg, "fedavg", state.global_params)
-        lr = pso.decayed_lr(cfg.hp, state.round_idx)
+
+def _round(loss_fn: LossFn, grad_fn: Callable, cfg: DistSwarmConfig,
+           algorithm: str, state: DistSwarmState, batch: dict,
+           eval_batch: dict, draws: RoundDraws
+           ) -> tuple[DistSwarmState, RoundTelemetry]:
+    """One round (M-DSL or FedAvg) over the fleet's layout (`_Fleet`: one
+    process, or a mesh); the state that comes out is laid out leaf for
+    leaf as the one that went in."""
+    fleet = _fleet(cfg, state)
+    pipe = _pipeline(cfg, algorithm, state.global_params)
+    lr = pso.decayed_lr(cfg.hp, state.round_idx)
+    small = {k: tree_map(fleet.full, getattr(state, k))
+             for k in ("best_loss", "gbest_loss", "prev_theta_mean", "eta",
+                       "phy")}
+    with fleet.context():
+        eval_w = tree_map(fleet.replica, eval_batch)
+
+        def local_deltas(start: Callable[[int], PyTree]) -> PyTree:
+            """(W, ...) stacked d_w = SGD^local_steps(w0_w) - w0_w for
+            this rank's workers, one at a time; start(i) is worker i's
+            w0."""
+            deltas = tree_map(torch.empty_like, state.params)
+            for i in fleet.workers:
+                w0 = start(i)
+                p, b = w0, tree_map(lambda x: fleet.view(x, i), batch)
+                for _ in range(cfg.local_steps):
+                    g = rounds.accumulated_grad(grad_fn, p, b,
+                                                cfg.microbatches)
+                    p = pso.sgd_step(p, g, lr)
+                    del g
+                tree_map(lambda out, t, s: fleet.store_sub(out, i, t, s),
+                         deltas, p, w0)
+                del p
+            return deltas
+
+        def worker_losses(params_of: Callable[[int], PyTree]):
+            """(W,) F_i on D_g, every worker's on every rank."""
+            with torch.no_grad():
+                return fleet.all_rows(torch.stack([
+                    fleet.full(loss_fn(params_of(i), eval_w))
+                    for i in fleet.workers]))
+
         with rounds.stage_span("LocalUpdate"):
-            deltas = _local_deltas(grad_fn, cfg,
-                                   lambda w: state.global_params, batch, lr,
-                                   state.global_params)
-            # FedAvg rides the same wire: byzantine deltas, compression
-            # with error feedback, channel — but every worker uploads
-            zeros = tree_map(torch.zeros_like, deltas)
-            deltas = comm_channel.corrupt_local_updates(cfg.comm, zeros,
-                                                        deltas,
-                                                        draws.byz_noise)
-            del zeros
-            # real per-worker scores: F_i at w_t + delta_i on the eval
-            # batch
-            losses = torch.stack([
-                _eval(loss_fn, tree_map(lambda g, d: g + d[w],
-                                        state.global_params, deltas),
-                      eval_batch, stacked=False)
-                for w in range(W)])
-        theta, mask, _ = pipe.select(losses, state.eta,
-                                     state.prev_theta_mean)
-        out = pipe.wire(delta=deltas, theta=theta, mask=mask,
-                        global_params=state.global_params,
-                        residual=state.residual,
-                        ps_residual=state.ps_residual, draws=draws,
-                        phy=state.phy, buffer=state.buffer)
-        del deltas
-        global_loss = _eval(loss_fn, out.global_params, eval_batch,
-                            stacked=False)
-        next_state = state._replace(global_params=out.global_params,
-                                    round_idx=state.round_idx + 1,
-                                    residual=out.residual,
-                                    ps_residual=out.ps_residual,
-                                    phy=out.phy, buffer=out.buffer)
-        return next_state, pipe.telemetry(losses=losses, theta=theta,
-                                          mask=mask,
-                                          global_loss=global_loss,
-                                          outcome=out)
+            if algorithm == "mdsl":
+                # local SGD steps, then Eq. 8 over the stacked state: one
+                # fused kernel launch per leaf for all of a rank's workers
+                deltas = local_deltas(lambda i: tree_map(
+                    lambda x: fleet.view(x, i), state.params))
+                coefs = _eq8_coefs(draws.coeffs, cfg.hp.velocity_clip)
+                leaves, treedef = tree_flatten(state.params)
+                updated = [pso_update(coefs, *xs) for xs in zip(
+                    leaves, *(tree_leaves(t) for t in (
+                        state.velocity, state.best_params,
+                        state.gbest_params, deltas)))]
+                del deltas
+                new_params = tree_unflatten(treedef, [u[0] for u in updated])
+                new_vel = tree_unflatten(treedef, [u[1] for u in updated])
+                del updated
+                # Byzantine workers' local updates are adversarial: the
+                # corruption lands in their params so Eq. 6 can reject them
+                new_params = comm_channel.corrupt_local_updates(
+                    cfg.comm, state.params, new_params, draws.byz_noise)
+                losses = worker_losses(lambda i: tree_map(
+                    lambda x: fleet.view(x, i), new_params))
+                delta = tree_map(lambda a, b: a - b, new_params,
+                                 state.params)
+            else:
+                g = tree_map(fleet.replica, state.global_params)
+                deltas = local_deltas(lambda i: g)
+                # FedAvg rides the same wire: byzantine deltas,
+                # compression with error feedback, channel — but every
+                # worker uploads
+                zeros = tree_map(torch.zeros_like, deltas)
+                delta = comm_channel.corrupt_local_updates(
+                    cfg.comm, zeros, deltas, draws.byz_noise)
+                del zeros, deltas
+                # real per-worker scores: F_i at w_t + delta_i on D_g
+                losses = worker_losses(lambda i: tree_map(
+                    lambda a, d: a + fleet.view(d, i), g, delta))
 
-    return train_step
+        # --- ScoreSelect (Eqs. 5-6) ---
+        theta, mask, theta_mean = pipe.select(losses, small["eta"],
+                                              small["prev_theta_mean"])
+
+        # --- Uplink -> Aggregate -> Downlink (Eq. 7 through the wire) ---
+        out = fleet.wire(pipe, state, small["phy"], delta, theta, mask,
+                         draws)
+        del delta
+        global_loss = fleet.full(_eval(loss_fn, out.global_params,
+                                       eval_batch))
+        telemetry = pipe.telemetry(losses=losses, theta=theta, mask=mask,
+                                   global_loss=global_loss, outcome=out)
+        if algorithm == "fedavg":
+            return state._replace(
+                global_params=out.global_params,
+                round_idx=state.round_idx + 1, residual=out.residual,
+                ps_residual=out.ps_residual, phy=out.phy,
+                buffer=out.buffer), telemetry
+
+        # --- BestTracking (Eqs. 9-10) ---
+        with rounds.stage_span("BestTracking"):
+            best_params, best_loss = rounds.track_local_best(
+                state.best_params, small["best_loss"], new_params, losses,
+                where=fleet.where_rows)
+            gbest_params, gbest_loss = rounds.track_global_best(
+                state.gbest_params, small["gbest_loss"], out.global_params,
+                global_loss, where=fleet.where)
+    return DistSwarmState(
+        params=new_params, velocity=new_vel, best_params=best_params,
+        best_loss=fleet.place(best_loss, state.best_loss),
+        global_params=out.global_params, gbest_params=gbest_params,
+        gbest_loss=fleet.place(gbest_loss, state.gbest_loss),
+        prev_theta_mean=fleet.place(theta_mean, state.prev_theta_mean),
+        eta=state.eta, round_idx=state.round_idx + 1, residual=out.residual,
+        ps_residual=out.ps_residual, phy=out.phy,
+        buffer=out.buffer), telemetry
+
+
+def _eval(loss_fn: LossFn, params: PyTree, eval_batch: dict):
+    with torch.no_grad():
+        return loss_fn(params, eval_batch)
+
+
+# ---------------------------------------------------------------------------
+# the fleet's layout: one process, or the worker dim over cfg.worker_axes
+# ---------------------------------------------------------------------------
+
+class _Fleet:
+    """The (W, ...) stacks whole in one process: this process runs every
+    worker, a worker's leaf is an index, and the cross-worker stages see
+    the whole stacks as they are."""
+
+    def __init__(self, W: int):
+        self.workers = range(W)
+
+    def context(self):
+        return contextlib.nullcontext()
+
+    def view(self, x, i: int):
+        """Worker i's leaf of a stacked one."""
+        return x[i]
+
+    def replica(self, x):
+        """A leaf shared by the workers, as one worker computes with it."""
+        return x
+
+    def store_sub(self, out, i: int, t, s) -> None:
+        """out[i] = t - s."""
+        torch.sub(t, s, out=out[i])
+
+    def all_rows(self, local: torch.Tensor) -> torch.Tensor:
+        return local
+
+    def full(self, x):
+        return x
+
+    def place(self, full: torch.Tensor, like):
+        return full
+
+    def where_rows(self, cond: torch.Tensor, new, old):
+        """Per worker: new where cond (W,), else old."""
+        return rounds.where_rows(cond, new, old)
+
+    def where(self, cond: torch.Tensor, new, old):
+        return torch.where(cond, new, old)
+
+    def wire(self, pipe, state, phy, delta, theta, mask, draws):
+        return pipe.wire(delta=delta, theta=theta, mask=mask,
+                         global_params=state.global_params,
+                         residual=state.residual,
+                         ps_residual=state.ps_residual, draws=draws,
+                         phy=phy, buffer=state.buffer)
+
+
+def _fleet(cfg: DistSwarmConfig, state: DistSwarmState) -> _Fleet:
+    leaf = tree_leaves(state.params)[0]
+    if is_dtensor(leaf):
+        return _MeshFleet(cfg, leaf.device_mesh)
+    return _Fleet(cfg.num_spatial)
+
+
+class _MeshFleet(_Fleet):
+    """The worker dim sharded over the mesh's worker axes (the state's
+    leaves DTensors): this rank runs its own workers on `to_local()`
+    views, each replica a DTensor over the remaining axes (`sub`); what
+    needs every worker is gathered over the worker axes."""
+
+    def __init__(self, cfg: DistSwarmConfig, mesh):
+        names = axis_names(mesh)
+        self.mesh = mesh
+        self.wdims = tuple(names.index(a) for a in cfg.worker_axes)
+        rest = tuple(n for n in names if n not in cfg.worker_axes)
+        off, size = 0, cfg.num_spatial
+        for d in self.wdims:
+            size //= mesh.size(d)
+            off += mesh.get_local_rank(d) * size
+        self.rows = slice(off, off + size)
+        self.workers = range(size)
+        self.sub = (mesh if not self.wdims
+                    else mesh[rest if len(rest) > 1 else rest[0]])
+
+    def context(self):
+        # model code mixes plain tensors (positions, masks) into DTensors
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+
+    def _sub_placements(self, x, stacked: bool) -> list:
+        from torch.distributed.tensor import Shard
+        return [Shard(p.dim - 1) if stacked and p.is_shard() else p
+                for d, p in enumerate(x.placements) if d not in self.wdims]
+
+    def view(self, x, i: int):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(x.to_local()[i], self.sub,
+                                  self._sub_placements(x, True),
+                                  run_check=False)
+
+    def replica(self, x):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(x.to_local(), self.sub,
+                                  self._sub_placements(x, False),
+                                  run_check=False)
+
+    def store_sub(self, out, i: int, t, s) -> None:
+        local = (t - s).redistribute(self.sub,
+                                     self._sub_placements(out, True))
+        out.to_local()[i].copy_(local.to_local())
+
+    def all_rows(self, local: torch.Tensor) -> torch.Tensor:
+        """Every worker's rows, from each rank's (W_local, ...) ones."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        pl = [Shard(0) if d in self.wdims else Replicate()
+              for d in range(self.mesh.ndim)]
+        return DTensor.from_local(local, self.mesh, pl,
+                                  run_check=False).full_tensor()
+
+    def full(self, x):
+        return x.full_tensor() if is_dtensor(x) else x
+
+    def place(self, full: torch.Tensor, like):
+        """The DTensor laid out as `like` whose shards are slices of
+        `full` (the same on every rank)."""
+        from torch.distributed.tensor import DTensor
+        local = full
+        for d, p in enumerate(like.placements):
+            if p.is_shard():
+                local = local.chunk(self.mesh.size(d), dim=p.dim)[
+                    self.mesh.get_local_rank(d)].contiguous()
+        return DTensor.from_local(local, self.mesh, like.placements,
+                                  run_check=False)
+
+    def where_rows(self, cond: torch.Tensor, new, old):
+        c = cond[self.rows]
+        return self.where(c.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+    def where(self, cond: torch.Tensor, new, old):
+        """torch.where on the shards of two DTensors laid out alike."""
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(
+            torch.where(cond, new.to_local(), old.to_local()),
+            old.device_mesh, old.placements, run_check=False)
+
+    def _over_workers(self, x):
+        """Every worker's rows of a stacked DTensor on this rank: gathered
+        over the worker axes only, its placements over the other axes
+        kept."""
+        from torch.distributed.tensor import Replicate
+        if not is_dtensor(x):
+            return x
+        return x.redistribute(self.mesh, [
+            Replicate() if d in self.wdims else p
+            for d, p in enumerate(x.placements)])
+
+    def _as(self, x, like):
+        """x laid out as `like`: a DTensor redistributed, a tensor the
+        same on every rank placed."""
+        if is_dtensor(x):
+            return boundary.relayout(x, like.placements)
+        return self.place(x, like)
+
+    def wire(self, pipe, state, phy, delta, theta, mask, draws):
+        """The wire on the state's own layout; every rank ends with the
+        same aggregate and broadcast, the global model and the PS
+        residual staying as they are laid out. The dense and straggler
+        routes gather each worker's delta, residual and parked delta over
+        the worker axes only, and the Eq.-7 aggregate runs elementwise on
+        this rank's model shards (bitwise the one-rank aggregate). On the
+        packed route the kernel boundary gathers one leaf at a time: its
+        rows of this rank's workers for quantize-pack (a block's scale
+        spans the leaf), then every worker's payloads for `wire_agg`. A
+        dense-route stage that needs a whole leaf (top-k, a quantizing
+        compressor or downlink, AWGN's power) gathers that leaf where it
+        acts."""
+        sent = state
+        if not (pipe.uplink_fn is rounds.uplink
+                and pipe.aggregate_fn is comm_channel.receive
+                and comm_compress.packed_wire_eligible(pipe.comm, delta)):
+            gather = lambda t: (None if t is None
+                                else tree_map(self._over_workers, t))
+            delta = gather(delta)
+            sent = state._replace(residual=gather(state.residual),
+                                  buffer=gather(state.buffer))
+        out = super().wire(pipe, sent, phy, delta, theta, mask, draws)
+        return out._replace(**{
+            k: None if getattr(out, k) is None
+            else tree_map(self._as, getattr(out, k), getattr(state, k))
+            for k in ("global_params", "ps_residual", "residual", "phy",
+                      "buffer")})

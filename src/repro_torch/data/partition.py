@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.data import synthetic
 from repro_torch.data.synthetic import SyntheticImageSpec
+from repro_torch.kernels.runtime import resolve_device
 
 
 class FederatedData(NamedTuple):
@@ -51,7 +52,8 @@ def _build(gen: torch.Generator, labels: torch.Tensor,
 
 def iid_partition(seed: int, num_workers: int, spec: SyntheticImageSpec,
                   n_local: int = 512, n_global: int = 2048,
-                  n_test: int = 2048, device="cpu") -> FederatedData:
+                  n_test: int = 2048, device=None) -> FederatedData:
+    device = resolve_device(device)
     gen = _generator(seed, device)
     labels = synthetic.uniform_labels(gen, (num_workers, n_local),
                                       spec.num_classes, device)
@@ -62,7 +64,7 @@ def iid_partition(seed: int, num_workers: int, spec: SyntheticImageSpec,
 def dirichlet_partition(seed: int, num_workers: int, alpha: float,
                         spec: SyntheticImageSpec, n_local: int = 512,
                         n_global: int = 2048, n_test: int = 2048,
-                        device="cpu") -> FederatedData:
+                        device=None) -> FederatedData:
     """Non-i.i.d. case I: one alpha across the fleet."""
     return mixed_dirichlet_partition(seed, [(num_workers, alpha)], spec,
                                      n_local, n_global, n_test, device)
@@ -71,8 +73,9 @@ def dirichlet_partition(seed: int, num_workers: int, alpha: float,
 def mixed_dirichlet_partition(seed: int, groups: Sequence[tuple[int, float]],
                               spec: SyntheticImageSpec, n_local: int = 512,
                               n_global: int = 2048, n_test: int = 2048,
-                              device="cpu") -> FederatedData:
+                              device=None) -> FederatedData:
     """Non-i.i.d. case II (Fig. 2): `groups` is [(count, alpha), ...]."""
+    device = resolve_device(device)
     gen = _generator(seed, device)
     rng = np.random.default_rng(seed)
     alphas = np.concatenate([np.full(cnt, a, np.float32)

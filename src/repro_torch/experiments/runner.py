@@ -125,16 +125,16 @@ def _noniid2_groups(C: int) -> list[tuple[int, float]]:
 
 
 def _dirichlet(alpha: float):
-    return lambda seed, C, spec, n, device="cpu": (
+    return lambda seed, C, spec, n, device=None: (
         partition.dirichlet_partition(seed, C, alpha, spec, n, device=device))
 
 
 # the partition cases: (seed, C, image spec, n_local, device) -> data
 CASES = {
-    "iid": lambda seed, C, spec, n, device="cpu": partition.iid_partition(
+    "iid": lambda seed, C, spec, n, device=None: partition.iid_partition(
         seed, C, spec, n, device=device),
     "noniid1": _dirichlet(0.5),
-    "noniid2": lambda seed, C, spec, n, device="cpu": (
+    "noniid2": lambda seed, C, spec, n, device=None: (
         partition.mixed_dirichlet_partition(seed, _noniid2_groups(C), spec,
                                             n, device=device)),
 }
@@ -142,7 +142,7 @@ CASES = {
 
 def make_case_data(case: str, dataset: str, num_workers: int, seed: int,
                    n_local: int = 512, alpha: Optional[float] = None,
-                   device="cpu") -> tuple[FederatedData, Any]:
+                   device=None) -> tuple[FederatedData, Any]:
     """Partitioned fleet data for one case; `alpha` overrides the
     Dirichlet concentration of noniid1 (default 0.5)."""
     spec = IMAGE_SPECS[dataset]

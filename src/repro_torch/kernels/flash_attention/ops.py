@@ -41,6 +41,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.sharding import boundary
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
@@ -270,7 +272,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     i sits at absolute position q_offset + i (default Sk - Sq); keys at
     positions >= kv_len (default Sk) are masked. Returns (B, Sq, H, hd)
     in q's dtype; a row with no valid key is 0. Differentiable in q, k
-    and v."""
+    and v. DTensor inputs run on each rank's shards where their layout
+    allows (`sharding.boundary.attention`)."""
+    if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
+        return boundary.attention(flash_attention, q, k, v, causal=causal,
+                                  window=window, q_offset=q_offset,
+                                  kv_len=kv_len)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttention.apply(q, k, v, causal, window, q_offset,
                                     kv_len)

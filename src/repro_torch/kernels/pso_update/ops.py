@@ -19,6 +19,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.sharding import boundary
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.kernels.pso_update.ref import pso_update_ref
 
 _P = ctypes.c_void_p
@@ -40,7 +42,10 @@ def pso_update(coefs: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """coefs (W, 4) f32 rows (c0, c1, c2, clip), clip <= 0 = no clip;
     w, v, wl, d (W, *leaf) and wg (*leaf), all f32 or all bf16.
-    Returns new (w', v') tensors in the leaf dtype."""
+    Returns new (w', v') tensors in the leaf dtype. DTensor inputs run
+    on each rank's shards (`sharding.boundary.pso`)."""
+    if any(is_dtensor(t) for t in (coefs, w, v, wl, wg, d)):
+        return boundary.pso(pso_update, coefs, w, v, wl, wg, d)
     if w.device.type == "cpu":
         return pso_update_ref(coefs, w, v, wl, wg, d)
     if w.device.type != "cuda":

@@ -25,6 +25,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.sharding import boundary
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.kernels.quant_pack.ref import (BLOCK_ROWS, LANES,
                                                 dequant_unpack_ref,
                                                 quant_pack_ef_ref,
@@ -213,7 +215,12 @@ def _unpad(x2: torch.Tensor, shape: tuple) -> torch.Tensor:
 
 def quantize_pack(x: torch.Tensor, seeds: torch.Tensor, *, bits: int = 8
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pack stacked (C, *leaf) f32 into the b-bit wire format."""
+    """Pack stacked (C, *leaf) f32 into the b-bit wire format. DTensor
+    inputs run on each rank's workers (`sharding.boundary.per_worker`),
+    as the three below."""
+    if is_dtensor(x) or is_dtensor(seeds):
+        return boundary.per_worker("quant_pack", quantize_pack, (x, seeds),
+                                   2, bits=bits)
     return quant_pack_2d(_pad_2d(x), seeds, bits=bits)
 
 
@@ -223,6 +230,9 @@ def quantize_pack_ef(x: torch.Tensor, residual: torch.Tensor,
     """Fused uplink hot path on a stacked leaf: returns (packed, scales,
     new_residual) with new_residual = (x + residual) - dequant(packed)
     shaped like x."""
+    if is_dtensor(x) or is_dtensor(residual) or is_dtensor(seeds):
+        return boundary.per_worker("quant_pack_ef", quantize_pack_ef,
+                                   (x, residual, seeds), 3, bits=bits)
     packed, scales, res2 = quant_pack_ef_2d(_pad_2d(x), _pad_2d(residual),
                                             seeds, bits=bits)
     return packed, scales, _unpad(res2, tuple(x.shape[1:]))
@@ -232,6 +242,10 @@ def dequantize_unpack(packed: torch.Tensor, scales: torch.Tensor,
                       shape: tuple, *, bits: int = 8,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Decode stacked payloads back to (C, *shape)."""
+    if is_dtensor(packed) or is_dtensor(scales):
+        return boundary.per_worker("dequant_unpack", dequantize_unpack,
+                                   (packed, scales), 1, shape=shape,
+                                   bits=bits, dtype=dtype)
     x2 = dequant_unpack_2d(packed, scales, bits=bits)
     return _unpad(x2, tuple(shape)).to(dtype)
 
@@ -240,6 +254,9 @@ def quant_dequant(x: torch.Tensor, seeds: torch.Tensor, *, bits: int = 8
                   ) -> torch.Tensor:
     """What the receiver decodes: quantize-pack then unpack (the dense
     route's simulation of the wire)."""
+    if is_dtensor(x) or is_dtensor(seeds):
+        return boundary.per_worker("quant_pack", quant_dequant, (x, seeds),
+                                   1, bits=bits)
     packed, scales = quantize_pack(x, seeds, bits=bits)
     return dequantize_unpack(packed, scales, tuple(x.shape[1:]), bits=bits,
                              dtype=x.dtype)

@@ -24,6 +24,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.sharding import boundary
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
                                                 rglru_scan_ref)
 
@@ -187,7 +189,11 @@ class _Scan(torch.autograd.Function):
 def rglru_scan(h0: torch.Tensor, a: torch.Tensor, b: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """h0: (B, D); a, b: (B, S, D) with S >= 1. Returns (states (B, S, D)
-    f32, final state (B, D) f32), differentiable in h0, a and b."""
+    f32, final state (B, D) f32), differentiable in h0, a and b. DTensor
+    inputs run on each rank's batch or channel shards
+    (`sharding.boundary.scan`)."""
+    if is_dtensor(h0) or is_dtensor(a) or is_dtensor(b):
+        return boundary.scan(rglru_scan, h0, a, b)
     f32 = torch.float32
     args = (h0.to(f32).contiguous(), a.to(f32).contiguous(),
             b.to(f32).contiguous())

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import runtime
+from repro_torch.sharding import boundary
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.kernels.quant_pack.ref import BLOCK_ROWS, LANES
 from repro_torch.kernels.wire_agg.ref import (AGGREGATORS, TREE_MODES,
                                               wire_agg_ref)
@@ -160,7 +162,14 @@ def wire_aggregate(packed: torch.Tensor, scales: torch.Tensor,
     """Aggregate C packed payloads of one leaf into a dense f32 delta of
     `shape` — `channel.receive`'s aggregate term before the += into the
     global params. mask: (C,) delivery mask; weights: optional (C,)
-    per-worker weights (None = ones)."""
+    per-worker weights (None = ones). DTensor inputs are gathered and
+    every rank aggregates them all (`sharding.boundary.replicated`)."""
+    if any(is_dtensor(t) for t in (packed, scales, mask, weights)):
+        return boundary.replicated(
+            "wire_agg", lambda p, s, m, w: wire_aggregate(
+                p, s, m, shape=shape, bits=bits, aggregator=aggregator,
+                trim_ratio=trim_ratio, weights=w),
+            (packed, scales, mask, weights))
     if aggregator not in AGGREGATORS:
         raise ValueError(f"unknown aggregator {aggregator!r}")
     C = packed.shape[0]

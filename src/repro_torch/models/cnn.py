@@ -17,6 +17,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.runtime import resolve_device
+
 PyTree = Any
 
 
@@ -67,8 +69,10 @@ def _nhwc_to_nchw(x):
 
 
 def make_cnn5(height: int, width: int, channels: int, num_classes: int,
-              width_mult: int = 8, device="cpu") -> ImageModel:
-    """Five-layer CNN [9]: conv-pool, conv-pool, conv, dense, dense."""
+              width_mult: int = 8, device=None) -> ImageModel:
+    """Five-layer CNN [9]: conv-pool, conv-pool, conv, dense, dense.
+    `device`: where `init` draws; None is the card (`resolve_device`)."""
+    device = resolve_device(device)
     c1, c2, c3 = width_mult, 2 * width_mult, 2 * width_mult
     feat = (height // 4) * (width // 4) * c3
     hidden = 4 * width_mult
@@ -96,9 +100,11 @@ def make_cnn5(height: int, width: int, channels: int, num_classes: int,
 
 def make_resnet(height: int, width: int, channels: int, num_classes: int,
                 width_mult: int = 8, blocks_per_stage: int = 2,
-                device="cpu") -> ImageModel:
+                device=None) -> ImageModel:
     """Compact normalization-free ResNet (2 stages x `blocks_per_stage`
-    residual blocks) — the paper's ResNet18 at reduced width."""
+    residual blocks) — the paper's ResNet18 at reduced width. `device`
+    as `make_cnn5`'s."""
+    device = resolve_device(device)
     c1, c2 = width_mult, 2 * width_mult
 
     def block_init(gen, cin, cout):

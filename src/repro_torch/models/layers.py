@@ -22,6 +22,7 @@ is a Python int, so decode never syncs the host.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Optional
 
@@ -29,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.sharding.rules import is_dtensor, shard
 
 PyTree = Any
 F32 = torch.float32
@@ -45,6 +47,23 @@ def cdtype(cfg) -> torch.dtype:
 DRAW_ELEMENTS = 1 << 26
 
 
+# what `normal_init` calls in its place while set (`draw_hook`): the
+# shard-wise draw of `launch.steps.init_placed`
+_DRAW_HOOK = None
+
+
+@contextlib.contextmanager
+def draw_hook(fn):
+    """Inside, every `normal_init(gen, shape, scale, dtype, device)` call
+    returns fn(gen, shape, scale, dtype, device) instead."""
+    global _DRAW_HOOK
+    prev, _DRAW_HOOK = _DRAW_HOOK, fn
+    try:
+        yield
+    finally:
+        _DRAW_HOOK = prev
+
+
 def normal_init(gen: Optional[torch.Generator], shape: tuple, scale: float,
                 dtype: torch.dtype, device) -> torch.Tensor:
     """N(0, 1) drawn in f32, times `scale`, then cast to `dtype`. One
@@ -52,15 +71,51 @@ def normal_init(gen: Optional[torch.Generator], shape: tuple, scale: float,
     drawn in blocks of up to DRAW_ELEMENTS elements of whole rows (at
     least one row), each block its own `randn` call. On the "meta"
     device, the shape and dtype only."""
-    out = torch.empty(tuple(shape), dtype=dtype, device=device)
-    if out.device.type == "meta" or out.numel() == 0:
+    if _DRAW_HOOK is not None:
+        return _DRAW_HOOK(gen, shape, scale, dtype, device)
+    return normal_shard(gen, shape, scale, dtype, device)
+
+
+def normal_shard(gen: Optional[torch.Generator], shape: tuple,
+                 scale: float, dtype: torch.dtype, device,
+                 box: Optional[tuple] = None) -> torch.Tensor:
+    """`normal_init`'s draw of a `shape` leaf, of which only the slice
+    `box` ((start, stop) a dim; None: the whole leaf) is kept: every
+    block is drawn as the whole draw draws it, so the slice's values are
+    the whole leaf's, and no more than the slice and one block exist."""
+    shape = tuple(shape)
+    if box is None:
+        box = tuple((0, n) for n in shape)
+    out = torch.empty(tuple(e - b for b, e in box), dtype=dtype,
+                      device=device)
+    if out.device.type == "meta" or math.prod(shape) == 0:
         return out
+    cols = shape[-1] if shape else 1
+    n_rows = math.prod(shape[:-1]) if shape else 1
     rows = out.view(-1, out.shape[-1]) if out.dim() else out.view(1, 1)
-    step = max(1, DRAW_ELEMENTS // rows.shape[1])
-    for r0 in range(0, rows.shape[0], step):
-        blk = torch.randn((min(step, rows.shape[0] - r0), rows.shape[1]),
-                          generator=gen, device=out.device, dtype=F32)
-        rows[r0:r0 + blk.shape[0]] = blk.mul_(scale)
+    whole = all(b == 0 and e == n for (b, e), n in zip(box, shape))
+    step = max(1, DRAW_ELEMENTS // cols)
+    for r0 in range(0, n_rows, step):
+        blk = torch.randn((min(step, n_rows - r0), cols), generator=gen,
+                          device=out.device, dtype=F32)
+        if whole:
+            rows[r0:r0 + blk.shape[0]] = blk.mul_(scale)
+            continue
+        # the block's rows that fall in the box, and where they go
+        r = torch.arange(r0, r0 + blk.shape[0], device=out.device)
+        keep = torch.ones_like(r, dtype=torch.bool)
+        pos = torch.zeros_like(r)
+        for d in range(len(shape) - 2, -1, -1):
+            i, r = r % shape[d], r // shape[d]
+            b, e = box[d]
+            keep &= (i >= b) & (i < e)
+            pos = pos + (i - b) * math.prod(
+                e2 - b2 for b2, e2 in box[d + 1:-1])
+        sel = keep.nonzero()[:, 0]
+        if sel.numel():
+            c0, c1 = box[-1] if shape else (0, 1)
+            rows.index_copy_(0, pos[sel], blk[sel, c0:c1].mul_(scale).to(
+                dtype))
     return out
 
 
@@ -99,12 +154,22 @@ def embedding_init(gen, vocab: int, d: int, dtype, device) -> PyTree:
 
 
 def embed(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens, params["table"])
+    tbl = shard(params["table"], ("vocab", "embed"))
+    if is_dtensor(tbl):
+        # the lookup reads the table gathered over the vocab: DTensor's
+        # vocab-parallel lookup (a masked partial sum) has no backward
+        # from a plain partial gradient, and cannot be resharded over a
+        # second mesh axis (its mask covers the unsharded tokens)
+        from torch.distributed.tensor import Replicate
+        tbl = tbl.redistribute(tbl.device_mesh, [
+            Replicate() if p.is_shard(0) else p for p in tbl.placements])
+    return shard(F.embedding(tokens, tbl), ("batch", "seq", "embed"))
 
 
 def unembed(params: PyTree, x: torch.Tensor) -> torch.Tensor:
     """Tied output head: (B,S,D) @ (V,D)^T -> (B,S,V), in x's dtype."""
-    return torch.matmul(x, params["table"].t())
+    tbl = shard(params["table"], ("vocab", "embed"))
+    return shard(torch.matmul(x, tbl.t()), ("batch", "seq", "vocab"))
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +219,19 @@ def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       cur: int, window: int) -> torch.Tensor:
     """One step over the cache (layers.py:273-304): q (B,S,H,hd), k/v
     (B,T,K,hd); `cur` is the new token's absolute position. Scores and
-    softmax in f32, p cast to the cache dtype before the PV product."""
+    softmax in f32, p cast to the cache dtype before the PV product.
+
+    A DTensor cache sharded over batch or kv heads (not over its
+    sequence) attends on each rank's shard, q laid out alike: the grouped
+    products would otherwise flatten two sharded dims, which DTensor
+    refuses in some versions."""
+    if is_dtensor(k) and not any(p.is_shard(1) for p in k.placements):
+        from torch.distributed.tensor.experimental import local_map
+        pl = list(k.placements)      # a list: one output's placements
+        return local_map(
+            lambda q, k, v: _decode_attention(q, k, v, cur, window),
+            out_placements=pl, in_placements=(pl, pl, pl),
+            device_mesh=k.device_mesh, redistribute_inputs=True)(q, k, v)
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     kv_pos = torch.arange(T, device=q.device)
@@ -210,6 +287,12 @@ def attention_apply(params: PyTree, x: torch.Tensor, cfg, *, mode: str,
     positions = pos + torch.arange(S, device=x.device)[None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    # act_* names: activation head sharding is decoupled from the weight
+    # head sharding so serving can seq-shard the KV cache (act heads
+    # replicated) while keeping projection weights TP-sharded
+    q = shard(q, ("batch", "seq", "act_heads", "head_dim"))
+    k = shard(k, ("batch", "seq", "act_kv_heads", "head_dim"))
+    v = shard(v, ("batch", "seq", "act_kv_heads", "head_dim"))
 
     new_cache = None
     if layer_cache is not None and mode in ("prefill", "decode"):
@@ -220,8 +303,8 @@ def attention_apply(params: PyTree, x: torch.Tensor, cfg, *, mode: str,
             # keep the last `cache_len` tokens in the ring
             kk, vv = k[:, -cache_len:], v[:, -cache_len:]
             idx = positions[0, -cache_len:] % cache_len
-        ck.index_copy_(1, idx, kk.to(ck.dtype))
-        cv.index_copy_(1, idx, vv.to(cv.dtype))
+        write_cache(ck, idx, kk)
+        write_cache(cv, idx, vv)
         new_cache = {"k": ck, "v": cv, "pos": pos + S}
 
     if mode == "decode":
@@ -235,8 +318,53 @@ def attention_apply(params: PyTree, x: torch.Tensor, cfg, *, mode: str,
 def _out_proj(params: PyTree, out: torch.Tensor) -> torch.Tensor:
     """(B,S,H,hd) x (H,hd,D) -> (B,S,D) as one matmul."""
     B, S = out.shape[:2]
-    return torch.matmul(out.reshape(B, S, -1),
-                        params["wo"].reshape(-1, params["wo"].shape[-1]))
+    out = shard(out, ("batch", "seq", "act_heads", "head_dim"))
+    wo = params["wo"].reshape(-1, params["wo"].shape[-1])
+    if is_dtensor(out):
+        # one (B S, H hd) product, as matmul folds a contiguous plain
+        # input: a DTensor's global strides of a size-1 dim (a decode
+        # step's S = 1) can read as strided and send matmul to a batched
+        # product, rounding otherwise than the plain path
+        y = torch.matmul(out.reshape(B * S, -1), wo).view(B, S, -1)
+    else:
+        y = torch.matmul(out.reshape(B, S, -1), wo)
+    return shard(y, ("batch", "seq", "embed"))
+
+
+def _seq_offset(c, dim: int) -> int:
+    """The global index of the first row, along `dim`, of this rank's
+    shard of DTensor c (the dims a DTensor shards divide evenly)."""
+    mesh, off, size = c.device_mesh, 0, c.shape[dim]
+    for m, p in enumerate(c.placements):
+        if p.is_shard(dim):
+            size //= mesh.size(m)
+            off += mesh.get_local_rank(m) * size
+    return off
+
+
+def write_cache(c: torch.Tensor, idx: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """c[:, idx] = new, in place, cast to c's dtype. On a DTensor cache
+    each rank writes its own shard: `new` is laid out as the cache
+    (redistributed), and a cache sharded over its sequence dim (the
+    serve rules' `cache_seq`) takes only the positions its block holds."""
+    new = new.to(c.dtype)
+    if not is_dtensor(c):
+        c.index_copy_(1, idx, new)
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, pl = c.device_mesh, c.placements
+    if not is_dtensor(new):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim)
+    local = c.to_local()
+    if not any(p.is_shard(1) for p in pl):
+        local.index_copy_(1, idx, new.redistribute(mesh, pl).to_local())
+        return
+    rows = new.redistribute(mesh, [Replicate() if p.is_shard(1) else p
+                                   for p in pl]).to_local()
+    start = _seq_offset(c, 1)
+    mine = ((idx >= start) & (idx < start + local.shape[1])).nonzero()[:, 0]
+    local.index_copy_(1, idx[mine] - start, rows[:, mine])
 
 
 def init_attention_cache(cfg, batch: int, cache_len: int, window: int,
@@ -266,6 +394,9 @@ def mlp_init(gen, d: int, d_ff: int, cfg, device, lead: tuple = ()
 
 def mlp_apply(params: PyTree, x: torch.Tensor, cfg) -> torch.Tensor:
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
-    a = F.silu(torch.matmul(h, params["wi"]))
-    b = torch.matmul(h, params["wu"])
-    return torch.matmul(a * b, params["wo"])
+    wi = shard(params["wi"], ("embed_fsdp", "mlp"))
+    wu = shard(params["wu"], ("embed_fsdp", "mlp"))
+    wo = shard(params["wo"], ("mlp", "embed_fsdp"))
+    a = F.silu(torch.matmul(h, wi))
+    b = torch.matmul(h, wu)
+    return shard(torch.matmul(a * b, wo), ("batch", "seq", "embed"))

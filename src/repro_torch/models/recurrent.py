@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.sharding.rules import shard
 from repro_torch.models.layers import (F32, cdtype, dense_init, rmsnorm,
                                        rmsnorm_init)
 
@@ -130,7 +131,9 @@ def rglru_apply(params: PyTree, x: torch.Tensor, cfg, *, mode: str,
     else:
         states, h_new = rglru_scan(h0, torch.exp(log_a), b)
 
-    out = torch.matmul(y_branch * states.to(x.dtype), params["wo"])
+    states = shard(states.to(x.dtype), ("batch", "seq", "embed"))
+    out = shard(torch.matmul(y_branch * states, params["wo"]),
+                ("batch", "seq", "embed"))
     cache = None
     if layer_cache is not None:
         cache = {"h": h_new, "conv": new_conv}
@@ -307,7 +310,7 @@ def mlstm_block_apply(params: PyTree, x: torch.Tensor, cfg, *, mode: str,
     hs, C, n, m = run(q, k, v, log_i, log_f, C0, n0, m0)
     hs = hs.reshape(B, S, H * hd).to(x.dtype)
     hs = rmsnorm(params["out_norm"], hs, cfg.norm_eps) * gate
-    out = torch.matmul(hs, params["w_down"])
+    out = shard(torch.matmul(hs, params["w_down"]), ("batch", "seq", "embed"))
     cache = None
     if layer_cache is not None:
         cache = {"C": C, "n": n, "m": m}
@@ -397,7 +400,8 @@ def slstm_apply(params: PyTree, x: torch.Tensor, cfg, *, mode: str,
     # block FFN (gated, factor 4/3)
     a = F.silu(torch.matmul(hs, params["ff_gate"]))
     u = torch.matmul(hs, params["ff_up"])
-    out = torch.matmul(a * u, params["ff_down"])
+    out = shard(torch.matmul(a * u, params["ff_down"]),
+                ("batch", "seq", "embed"))
     cache = None
     if layer_cache is not None:
         cache = {"c": c, "n": n, "m": m, "h": h}

@@ -53,6 +53,7 @@ from repro_torch.configs.base import (ATTN, MLSTM, RGLRU, SLSTM, SWA,
                                       ArchConfig)
 from repro_torch.models import layers, moe, recurrent
 from repro_torch.models.layers import cdtype
+from repro_torch.sharding.rules import is_dtensor, shard
 
 PyTree = Any
 F32 = torch.float32
@@ -92,6 +93,12 @@ def _unstack(tree: PyTree, n: int) -> list[PyTree]:
     if isinstance(tree, dict):
         parts = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if is_dtensor(tree) and any(p.is_shard(0) for p in tree.placements):
+        # a layer-stack dim a rule shards (the table's attention "wo"
+        # rule also matches RG-LRU's wo): gathered, as a scan over it is
+        from torch.distributed.tensor import Replicate
+        tree = tree.redistribute(tree.device_mesh, [
+            Replicate() if p.is_shard(0) else p for p in tree.placements])
     return list(torch.unbind(tree, 0))
 
 
@@ -108,8 +115,13 @@ def _write_back(stacked: PyTree, i: int, new: PyTree,
                 stacked[k] = v
         elif tensors:
             dst = stacked[k][i]
-            if v.data_ptr() != dst.data_ptr():     # written in place already
+            if _ptr(v) != _ptr(dst):               # written in place already
                 dst.copy_(v)
+
+
+def _ptr(x: torch.Tensor) -> int:
+    """The data pointer of x (of a DTensor: of this rank's shard)."""
+    return (x.to_local() if is_dtensor(x) else x).data_ptr()
 
 
 def layer_init(gen, cfg: ArchConfig, block_kind: str, device,
@@ -143,6 +155,10 @@ def layer_apply(p: PyTree, x: torch.Tensor, cfg: ArchConfig,
                            Optional[torch.Tensor]]:
     """Returns (x_out, new_cache, aux): aux is the MoE load-balance loss
     (an f32 scalar), None for a layer without MoE."""
+    # a sequence-parallel residual (the rules' residual_seq between layer
+    # groups) is gathered where the layer's products need whole rows, as
+    # the reference's partitioner gathers it
+    x = shard(x, ("batch", "seq", "embed"))
     tcache = None if cache is None else cache.get("temporal")
     if block_kind in (ATTN, SWA):
         window = cfg.window_size if block_kind == SWA else 0
@@ -236,8 +252,10 @@ class Transformer:
             return batch["embeddings"].to(cdtype(cfg))
         x = layers.embed(params["embed"], batch["tokens"])
         if cfg.input_mode == "tokens+prefix":
-            x = torch.cat([batch["prefix"].to(x.dtype), x], dim=1)
-        return x
+            prefix = shard(batch["prefix"].to(x.dtype),
+                           ("batch", "seq", "embed"))
+            x = torch.cat([prefix, x], dim=1)
+        return shard(x, ("batch", "seq", "embed"))
 
     def _encoder_layer(self, lp: PyTree, x: torch.Tensor) -> torch.Tensor:
         return layer_apply(lp, x, self.cfg, ATTN, mode="encode",
@@ -319,6 +337,10 @@ class Transformer:
                                      preserve_rng_state=False)
             else:
                 x, last, a = self._group(group, x, mode, cache, i, memory)
+            if cache is None:
+                # the sequence-parallel residual boundary (the rules map
+                # residual_seq to "model" in training)
+                x = shard(x, ("batch", "residual_seq", "embed"))
             aux = _add(aux, a)
         if cache is not None:
             for j, nc in last.items():
@@ -333,6 +355,7 @@ class Transformer:
             aux = _add(aux, a)
             if cache is not None:
                 cache[f"rem{r}"] = nc
+        x = shard(x, ("batch", "seq", "embed"))
         return layers.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
     # -- full-sequence forward (teacher forcing) ------------------------------
@@ -360,7 +383,7 @@ class Transformer:
         if self.cfg.input_mode == "tokens+prefix":
             logits = logits[:, self.cfg.prefix_len:]
         logits = logits[:, :-1]
-        targets = batch["labels"][:, 1:]
+        targets = batch["labels"][:, 1:].long()
         mask = targets >= 0
         lp = F.log_softmax(logits.to(torch.float32), dim=-1)
         del logits
@@ -417,6 +440,7 @@ class Transformer:
     def decode_step(self, params: PyTree, tokens: torch.Tensor,
                     cache: PyTree) -> tuple[torch.Tensor, PyTree]:
         """tokens: (B, 1). Returns (logits (B, 1, V), cache)."""
-        x = layers.embed(params["embed"], tokens)
+        x = shard(layers.embed(params["embed"], tokens),
+                  ("batch", "seq", "embed"))
         x, _ = self._run(params, x, cache, "decode")
         return layers.unembed(params["embed"], x), cache

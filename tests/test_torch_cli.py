@@ -214,10 +214,10 @@ def test_tables_and_exports_match_reference():
     assert ptrain._noniid2_groups(50) == jtrain._noniid2_groups(50)
     spec = psynthetic.MNIST_LIKE
     for case, fn in prunner.CASES.items():
-        data = fn(0, 6, spec, 16)
+        data = fn(0, 6, spec, 16, device="cpu")
         assert tuple(data.x.shape) == (6, 16, 28, 28, 1), case
         assert tuple(data.y.shape) == (6, 16), case
-    mixed = prunner.CASES["noniid2"](0, 10, spec, 16)
+    mixed = prunner.CASES["noniid2"](0, 10, spec, 16, device="cpu")
     assert mixed.alphas.tolist() == pytest.approx(
         [a for c, a in jtrain._noniid2_groups(10) for _ in range(c)])
 

@@ -1,6 +1,6 @@
 """The port stands alone: no module of repro_torch (its figure drivers
-and examples included), and not chip_smoke.py, flash_probe.py or
-determinism_probe.py, imports jax, the JAX package or the root
+and examples included), and not chip_smoke.py, flash_probe.py,
+determinism_probe.py or mesh_probe.py, imports jax, the JAX package or the root
 `benchmarks` drivers; its entry points never fall back to the CPU on
 their own."""
 import ast
@@ -12,12 +12,18 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flash_probe.py",
-    ROOT / "determinism_probe.py"]
+    ROOT / "determinism_probe.py", ROOT / "mesh_probe.py"]
 # the figure drivers and examples: each must be among PORT_FILES
 DRIVERS = ("figures/common.py", "figures/fig3_accuracy.py",
            "figures/fig1_metric.py", "figures/comm_efficiency.py",
            "figures/population_bench.py", "examples/quickstart.py",
            "examples/edge_iot_noniid.py", "examples/serve_decode.py")
+
+
+# the sharded mesh path: each must be among PORT_FILES
+MESH_MODULES = ("sharding/__init__.py", "sharding/rules.py",
+                "sharding/param_specs.py", "sharding/boundary.py",
+                "launch/mesh.py", "launch/steps.py", "models/moe_ep.py")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -41,6 +47,25 @@ def test_no_jax_or_reference_imports(path):
 def test_drivers_are_checked():
     port = ROOT / "src" / "repro_torch"
     assert {port / d for d in DRIVERS} <= set(PORT_FILES)
+
+
+def test_mesh_modules_are_checked():
+    port = ROOT / "src" / "repro_torch"
+    assert {port / d for d in MESH_MODULES} <= set(PORT_FILES)
+    assert ROOT / "tests" / "torch_mesh_worker.py" not in PORT_FILES
+    bad = _imported_roots(ROOT / "tests" / "torch_mesh_worker.py") & {
+        "jax", "jaxlib", "repro"}
+    assert not bad, f"the mesh tests' ranks import {sorted(bad)}"
+
+
+def test_production_mesh_needs_its_process_group():
+    """Importing launch/mesh touches no device; without a process group
+    of 256 (or 512) ranks the mesh raises, naming what it needs."""
+    from repro_torch.launch import mesh
+    with pytest.raises(RuntimeError, match="256 ranks"):
+        mesh.make_production_mesh()
+    with pytest.raises(RuntimeError, match="512 ranks"):
+        mesh.make_production_mesh(multi_pod=True)
 
 
 def test_run_without_device_raises_instead_of_cpu(monkeypatch):

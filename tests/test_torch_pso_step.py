@@ -146,7 +146,7 @@ def test_per_step_local_update_matches_reference():
         jax.tree.map(jnp.asarray, ws), jnp.asarray(x), jnp.asarray(y), keys,
         jco)
 
-    model = paper_cnn(width_mult=2)
+    model = paper_cnn(width_mult=2, device="cpu")
     loss = lambda p, a, b: losses.cross_entropy_loss(  # noqa: E731
         model.apply(p, a), b.long(), 10)
     cfg = mdsl.MdslConfig(algorithm="mdsl", local_epochs=E, batch_size=BS,
@@ -172,7 +172,8 @@ def test_per_step_local_update_matches_reference():
 def test_draws_have_one_permutation_a_worker(algorithm, shape):
     cfg = mdsl.MdslConfig(algorithm=algorithm, local_epochs=E,
                           pso_every_step=True)
-    params = paper_cnn(width_mult=2).init(torch.Generator().manual_seed(0))
+    params = paper_cnn(width_mult=2, device="cpu").init(
+        torch.Generator().manual_seed(0))
     d = mdsl.sample_round_draws(torch.Generator().manual_seed(1), cfg,
                                 params, C, N, "cpu", round_idx=0)
     assert tuple(d.perms.shape) == shape

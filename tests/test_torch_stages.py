@@ -195,7 +195,8 @@ def test_model_logits_and_grads(kind, width):
     h, w, ch = (28, 28, 1) if kind == "cnn5" else (32, 32, 3)
     make_j = jcnn.make_cnn5 if kind == "cnn5" else jcnn.make_resnet
     make_p = pcnn.make_cnn5 if kind == "cnn5" else pcnn.make_resnet
-    jm, pm = make_j(h, w, ch, 10, width), make_p(h, w, ch, 10, width)
+    jm, pm = (make_j(h, w, ch, 10, width),
+              make_p(h, w, ch, 10, width, device="cpu"))
     params = _np_params(jm)
     x = RNG.standard_normal((16, h, w, ch)).astype(np.float32)
     y = RNG.integers(0, 10, 16).astype(np.int32)
