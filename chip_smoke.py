@@ -276,7 +276,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      tokens (4, 4096)) through `moe_ep`'s stages for 4 virtual shards:
      dropless within 2 bf16 ulps of the dense dispatch, the aux within
      1e-5; at the config's capacity factor both paths' drops printed;
- 40. prints the card line, the `kernels` JSON line (each row with its
+ 40. the dry-run (`launch/dryrun`, `op_costmodel`): each kernel
+     operator's shape rule (its fake implementation) against a real
+     launch at its main-path shape (shapes, dtypes, strides; no launch
+     counted); the dispatcher's host cost a call (pso_update through its
+     operator against its CUDA implementation called straight); phase
+     37's step dry-run on fake tensors against the real
+     round under the same cost model (FLOPs equal, the predicted peak of
+     live bytes within 10% of the allocator's peak for the round), its
+     breakdown printed; three production-mesh dry-runs as subprocesses
+     started before phase 37 at the lowest priority
+     (`python -m repro_torch.launch.dryrun`: SmolLM-360M and
+     Qwen3-MoE-30B-A3B train_4k on the 256-rank mesh, RecurrentGemma-9B
+     decode_32k on the 512-rank one), each record's per-rank peak
+     against the card's memory and its dominant term;
+ 41. prints the card line, the `kernels` JSON line (each row with its
      share of bound = bound_ms / ms; each kernel's first row with its
      launches in the int4 straggler run, the int4 population run, the
      mesh straggler run, the obs run, the mesh checkpoint run, the
@@ -397,6 +411,29 @@ def bound_ms(nbytes: float, ops: float,
              ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def cost(op, *args) -> tuple[int, int]:
+    """(bytes, operations) of one call of a kernel operator: its one
+    definition (`runtime.op_cost`), which the dry-run's cost model also
+    reads."""
+    from repro_torch.kernels import runtime
+    ops, nbytes = runtime.op_cost(op, *args)
+    return nbytes, ops
+
+
+def kernel_bound(op, *args, ops_per_s: float = F32_OPS_PER_S
+                 ) -> tuple[float, str]:
+    return bound_ms(*cost(op, *args), ops_per_s)
+
+
+def flash_masks(q, k, kw) -> tuple:
+    """The flash operators' (causal, window, q_offset, kv_len) for the
+    wrapper's keywords kw."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    *_, q_offset, kv_len = fops._shapes(q, k, kw.get("q_offset"),
+                                        kw.get("kv_len"))
+    return (kw.get("causal", True), kw.get("window", 0), q_offset, kv_len)
 
 
 # words in the names of the cuBLAS/CUTLASS GEMM kernels (a profile's
@@ -537,31 +574,31 @@ def kernel_checks(dev):
                 "quant_pack_ef": (
                     lambda: qops.quant_pack_ef_2d(x, r, s, bits=bits),
                     lambda: qref.quant_pack_ef_ref(x, r, s, bits=bits), C,
-                    8 * n + 4 * C + pbytes + 4 * C * nb + 4 * n, 25 * n,
-                    None),
+                    *cost(qops.QUANT_PACK_EF, x, r, s, bits), None),
                 "wire_agg": (
                     lambda: wops.wire_agg_2d(pp, ps, part, one, bits=bits),
                     lambda: wref.wire_agg_ref(pp, ps, part, one, bits=bits),
-                    C, pbytes + 4 * C * nb + 8 * C + 4 * n1, 3 * n, None),
+                    C, *cost(wops.WIRE_AGG, pp, ps, part, one, bits, "mean",
+                             0.1), None),
                 "quant_pack": (
                     lambda: qops.quant_pack_2d(x1, s1, bits=bits),
                     lambda: qref.quant_pack_ref(x1, s1, bits=bits), 1,
-                    4 * n1 + 4 + pb1 + 4 * nb, 23 * n1, None),
+                    *cost(qops.QUANT_PACK, x1, s1, bits), None),
                 # the straggler route's dense uplink of all C workers
                 "quant_pack C=50": (
                     lambda: qops.quant_pack_2d(x, s, bits=bits),
                     lambda: qref.quant_pack_ref(x, s, bits=bits), C,
-                    4 * n + 4 * C + pbytes + 4 * C * nb, 23 * n, None),
+                    *cost(qops.QUANT_PACK, x, s, bits), None),
                 "dequant_unpack": (
                     lambda: qops.dequant_unpack_2d(q1, q1s, bits=bits),
                     lambda: qref.dequant_unpack_ref(q1, q1s, bits=bits), 1,
-                    pb1 + 4 * nb + 4 * n1, 2 * n1,
+                    *cost(qops.DEQUANT_UNPACK, q1, q1s, bits),
                     lib_dequant(q1, q1s) if bits == 8 else None),
                 # the dense route's decode of all C stacked workers
                 "dequant_unpack C=50": (
                     lambda: qops.dequant_unpack_2d(pp, ps, bits=bits),
                     lambda: qref.dequant_unpack_ref(pp, ps, bits=bits), C,
-                    pbytes + 4 * C * nb + 4 * n, 2 * n,
+                    *cost(qops.DEQUANT_UNPACK, pp, ps, bits),
                     lib_dequant(pp, ps) if bits == 8 else None),
             }
             for name, (kern, plain, workers, nbytes, ops,
@@ -913,8 +950,9 @@ def serve_kernel_checks(dev):
     mask = fref.attention_mask(S, S, causal=True, window=kw["window"],
                                q_offset=0, kv_len=S, device=dev)
     pairs = int(mask.sum()) * B * H          # unmasked (query, key) pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    bnd, by = bound_ms(nbytes, 4 * hd * pairs, BF16_OPS_PER_S)
+    nbytes, _ = cost(fops.FLASH, q, k, v, *flash_masks(q, k, kw))
+    bnd, by = kernel_bound(fops.FLASH, q, k, v, *flash_masks(q, k, kw),
+                           ops_per_s=BF16_OPS_PER_S)
     # the library yardstick: one SDPA call with the same boolean mask
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2).expand(B, H, S, hd).contiguous()
@@ -969,8 +1007,8 @@ def serve_kernel_checks(dev):
         print(f"[check] rglru_scan B={B} S={S} D={D} f32 (plan "
               f"{sops._plan(B, S, D)}): states and final state bitwise "
               f"equal to the plain version", flush=True)
-    nbytes = 12 * B * S * D + 8 * B * D
-    bnd, by = bound_ms(nbytes, 2 * B * S * D)
+    nbytes, _ = cost(sops.RGLRU_SCAN, h0, a, b)
+    bnd, by = kernel_bound(sops.RGLRU_SCAN, h0, a, b)
     t = {"ms": graph_ms(lambda: sops.rglru_scan(h0, a, b), 10),
          "eager_ms": time_ms(lambda: sops.rglru_scan(h0, a, b), 10),
          "plain_ms": time_ms(lambda: sref.rglru_scan_ref(h0, a, b), 3),
@@ -1188,9 +1226,8 @@ def pso_checks(dev):
                   f"leaf={leaf}, clip off and on: bitwise equal to the "
                   f"plain version", flush=True)
             if label == "main" and dtype == torch.bfloat16:
-                n = wg.numel()
-                nbytes = w.element_size() * (6 * W * n + n) + 16 * W
-                bnd, by = bound_ms(nbytes, 8 * W * n)
+                nbytes, _ = cost(pops.PSO_UPDATE, co, w, v, wl, wg, d)
+                bnd, by = kernel_bound(pops.PSO_UPDATE, co, w, v, wl, wg, d)
                 t = {"ms": graph_ms(lambda: pops.pso_update(
                          co, w, v, wl, wg, d), 10),
                      "eager_ms": time_ms(lambda: pops.pso_update(
@@ -1374,8 +1411,10 @@ def flash_bwd_checks(dev):
     def fwd():
         return fops._forward(q, k, v, True, 0, None, None, True)
 
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
-    bnd, by = bound_ms(nbytes, 4 * hd * pairs, BF16_OPS_PER_S)
+    masks = flash_masks(q, k, {"causal": True})
+    nbytes, _ = cost(fops.FLASH_LSE, q, k, v, *masks)
+    bnd, by = kernel_bound(fops.FLASH_LSE, q, k, v, *masks,
+                           ops_per_s=BF16_OPS_PER_S)
     with torch.no_grad():
         tf = {"ms": graph_ms(fwd, 10), "eager_ms": time_ms(fwd, 10),
               "plain_ms": time_ms(lambda: fref.attention_ref(
@@ -1396,9 +1435,9 @@ def flash_bwd_checks(dev):
     check(tf["ms"] < tf["cuda_core_ms"], "flash forward mesh: the "
           "tensor-core kernel is not faster than the CUDA-core one")
 
-    nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                  + do.numel()) + 4 * lse.numel()
-    bnd, by = bound_ms(nbytes, 10 * hd * pairs, BF16_OPS_PER_S)
+    nbytes, _ = cost(fops.FLASH_BWD, q, k, v, out, do, lse, *masks)
+    bnd, by = kernel_bound(fops.FLASH_BWD, q, k, v, out, do, lse, *masks,
+                           ops_per_s=BF16_OPS_PER_S)
 
     def bwd():
         return fops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
@@ -1699,9 +1738,11 @@ def hd80_forward_checks(dev):
             continue
         B, S, H, hd = q.shape
         pairs = B * H * S * (S + 1) // 2
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        bnd, by = bound_ms(nbytes, 4 * hd * pairs, BF16_OPS_PER_S
-                           if q.dtype == torch.bfloat16 else F32_OPS_PER_S)
+        nbytes, _ = cost(fops.FLASH, q, k, v, *flash_masks(q, k, kw))
+        bnd, by = kernel_bound(fops.FLASH, q, k, v, *flash_masks(q, k, kw),
+                               ops_per_s=BF16_OPS_PER_S
+                               if q.dtype == torch.bfloat16
+                               else F32_OPS_PER_S)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         t = {"ms": graph_ms(lambda: fops.flash_attention(q, k, v, **kw), 5),
              "eager_ms": time_ms(lambda: fops.flash_attention(q, k, v, **kw),
@@ -1782,9 +1823,10 @@ def time_flash_bwd(label, q, k, v, out, do, lse, kw):
                                q_offset=0, kv_len=S, device=q.device)
     pairs = int(mask.sum()) * B * H
     del mask
-    nbytes = 2 * (3 * q.numel() + 2 * k.numel() + 2 * v.numel()
-                  + do.numel()) + 4 * lse.numel()
-    bnd, by = bound_ms(nbytes, 10 * hd * pairs, BF16_OPS_PER_S)
+    nbytes, _ = cost(fops.FLASH_BWD, q, k, v, out, do, lse,
+                     *flash_masks(q, k, kw))
+    bnd, by = kernel_bound(fops.FLASH_BWD, q, k, v, out, do, lse,
+                           *flash_masks(q, k, kw), ops_per_s=BF16_OPS_PER_S)
     G = H // K
     qt = q.transpose(1, 2).contiguous().requires_grad_()
     kt = k.transpose(1, 2).repeat_interleave(G, 1).contiguous() \
@@ -2664,8 +2706,8 @@ def pso_every_step_path(card: str) -> dict:
                      dim=1).contiguous()
     args = tuple(t.contiguous() for t in (x, v, wl, wg, -lr * g))
     n = wg.numel()
-    nbytes = 4 * (6 * C * n + n) + 16 * C
-    bnd, by = bound_ms(nbytes, 8 * C * n)
+    nbytes, _ = cost(pops.PSO_UPDATE, co, *args)
+    bnd, by = kernel_bound(pops.PSO_UPDATE, co, *args)
     # one launch moves 30 MB, which the card's 50 MB L2 would keep
     # between repeats: the timed launches cycle through L2_COPIES copies
     # of the inputs, so each reads them from device memory as the step
@@ -2853,7 +2895,7 @@ def scan_bwd_checks(dev):
             del a, b, h0, gs, states, got, want
     # the training shape (the last one walked): times and bounds
     n = B * S * D
-    bnd, by = bound_ms(20 * n + 8 * B * D, 3 * n)
+    bnd, by = kernel_bound(sops.RGLRU_SCAN_BWD, h0, a, states, gs)
     t = {"ms": graph_ms(lambda: sops.rglru_scan_bwd_raw(h0, a, states, gs),
                         10),
          "eager_ms": time_ms(lambda: sops.rglru_scan_bwd_raw(h0, a, states,
@@ -2868,7 +2910,7 @@ def scan_bwd_checks(dev):
           f"ms, plain {t['plain_ms']:.3f} ms, library none, bound {bnd:.4g} "
           f"ms ({by}, {20 * n + 8 * B * D} B; {bnd / t['ms']:.1%} of it)",
           flush=True)
-    fbnd, fby = bound_ms(12 * n + 8 * B * D, 2 * n)
+    fbnd, fby = kernel_bound(sops.RGLRU_SCAN, h0, a, b)
     ft = {"ms": graph_ms(lambda: sops.rglru_scan_raw(h0, a, b), 10),
           "eager_ms": time_ms(lambda: sops.rglru_scan_raw(h0, a, b), 10),
           "plain_ms": time_ms(lambda: sref.rglru_scan_ref(h0, a, b), 3),
@@ -3117,8 +3159,9 @@ def new_forward_checks(dev) -> dict:
         B, Sq, H, hd = q.shape
         Sk, K, causal = k.shape[1], k.shape[2], kw["causal"]
         pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        bnd, by = bound_ms(nbytes, 4 * hd * pairs, BF16_OPS_PER_S)
+        nbytes, _ = cost(fops.FLASH, q, k, v, *flash_masks(q, k, kw))
+        bnd, by = kernel_bound(fops.FLASH, q, k, v, *flash_masks(q, k, kw),
+                               ops_per_s=BF16_OPS_PER_S)
         qt = q.transpose(1, 2)
         kt, vt = (x.transpose(1, 2).repeat_interleave(H // K, 1).contiguous()
                   for x in (k, v))
@@ -3755,6 +3798,272 @@ def ep_layer_check(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# this slice: the dry-run and its cost model (phase 40)
+DRYRUN_CELLS = (("smollm-360m", "train_4k", "single"),
+                ("qwen3-moe-30b-a3b", "train_4k", "single"),
+                ("recurrentgemma-9b", "decode_32k", "multi"))
+DRYRUN_TAG = "__chip_smoke"
+DRYRUN_TIMEOUT_S = 420          # each production-mesh dry-run
+PEAK_TOL = 0.10                 # predicted against the allocator's peak
+
+
+def start_dryruns() -> list:
+    """Phase 40's production-mesh dry-runs, one `python -m
+    repro_torch.launch.dryrun` each, all started at once: each makes its
+    own fake process group of 256 or 512 ranks, which this process (it
+    holds phase 37's NCCL group) cannot. They only trace on the CPU (fake
+    tensors), at the lowest priority and one thread each, so they run
+    beside phases 37-39 on the host's other cores. Their output goes to
+    build/."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    runs = []
+    for cell in DRYRUN_CELLS:
+        log = ROOT / "build" / f"dryrun-{'-'.join(cell)}.log"
+        log.parent.mkdir(parents=True, exist_ok=True)
+        arch, shape, mesh = cell
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh,
+                 "--tag", DRYRUN_TAG], cwd=ROOT, env=env, stdout=out,
+                stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))
+        runs.append((cell, proc, log))
+    return runs
+
+
+def stop_dryruns(runs) -> None:
+    for _, proc, _ in runs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def fake_kernel_checks(dev) -> None:
+    """Each kernel operator's shape rule (its fake implementation, under
+    FakeTensorMode) against a real launch at the main path's shape (PERF
+    §6): the outputs' shapes, dtypes and strides (a size-1 dim's stride
+    is free); the fake launches nothing."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.pso_update import ops as pops
+    from repro_torch.kernels.quant_pack import ops as qops
+    from repro_torch.kernels.rglru_scan import ops as sops
+    from repro_torch.kernels.wire_agg import ops as wops
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    bf16, f32, i32 = torch.bfloat16, torch.float32, torch.int32
+
+    def rand(*shape, dtype=f32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def strides(t):
+        return [s for s, n in zip(t.stride(), t.shape) if n > 1]
+
+    seeds50 = torch.arange(50, dtype=i32, device=dev)
+    x50 = rand(50, 256, 128)
+    p4, s4 = qops.QUANT_PACK(x50, seeds50, 4)
+    mask = (torch.arange(50, device=dev) < 30).float()
+    x1, seeds1 = rand(1, 256, 128), seeds50[:1].contiguous()
+    p8, s8 = qops.QUANT_PACK(x1, seeds1, 8)
+    qf, kf, vf = rand(4, 4096, 16, 256, dtype=bf16), \
+        rand(4, 4096, 1, 256, dtype=bf16), rand(4, 4096, 1, 256, dtype=bf16)
+    qm, km, vm = rand(2, 2048, 15, 64, dtype=bf16), \
+        rand(2, 2048, 5, 64, dtype=bf16), rand(2, 2048, 5, 64, dtype=bf16)
+    om, lm = fops.FLASH_LSE(qm, km, vm, True, 0, 0, 2048)
+    a4 = torch.rand((4, 4096, 4096), generator=g, device=dev)
+    a2 = torch.rand((2, 2048, 4096), generator=g, device=dev)
+    h4, h2 = rand(4, 4096), rand(2, 4096)
+    wp = rand(2, 32, 960, 2560, dtype=bf16)
+    cases = [
+        ("quant_pack_ef int4 C=50 (256,128)", qops.QUANT_PACK_EF,
+         (x50, 0.1 * x50, seeds50, 4)),
+        ("wire_agg int4 mean C=50 (128,128) u8, 30 delivered", wops.WIRE_AGG,
+         (p4, s4, mask, torch.ones(50, device=dev), 4, "mean", 0.1)),
+        ("quant_pack int8 C=1 (256,128)", qops.QUANT_PACK, (x1, seeds1, 8)),
+        ("dequant_unpack int8 C=1 (256,128)", qops.DEQUANT_UNPACK,
+         (p8, s8, 8)),
+        ("flash_attention bf16 (4, 4096, 16 over 1, 256) window 2048",
+         fops.FLASH, (qf, kf, vf, True, 2048, 0, 4096)),
+        ("flash_attention_lse bf16 (2, 2048, 15 over 5, 64) causal",
+         fops.FLASH_LSE, (qm, km, vm, True, 0, 0, 2048)),
+        ("flash_attention_bwd bf16 (2, 2048, 15 over 5, 64) causal",
+         fops.FLASH_BWD, (qm, km, vm, om, torch.randn_like(om), lm, True, 0,
+                          0, 2048)),
+        ("rglru_scan f32 (4, 4096, 4096)", sops.RGLRU_SCAN,
+         (h4, a4, rand(4, 4096, 4096))),
+        ("rglru_scan_bwd f32 (2, 2048, 4096)", sops.RGLRU_SCAN_BWD,
+         (h2, a2, rand(2, 2048, 4096), rand(2, 2048, 4096))),
+        ("pso_update bf16 W=2 (32, 960, 2560)", pops.PSO_UPDATE,
+         (rand(2, 4, dtype=f32).abs(), wp, 0.01 * wp, wp + 0.1, wp[0],
+          1e-3 * wp))]
+    for label, op, args in cases:
+        real = op(*args)
+        real = real if isinstance(real, tuple) else (real,)
+        runtime.reset_counts()
+        with FakeTensorMode() as fm:
+            fake = op(*[fm.from_tensor(a) if torch.is_tensor(a) else a
+                        for a in args])
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        check(runtime.counts() == {}, f"phase 40: {label}'s shape rule "
+              f"counted launches {runtime.counts()}")
+        got = [(tuple(f.shape), f.dtype, strides(f), f.device.type)
+               for f in fake]
+        want = [(tuple(t.shape), t.dtype, strides(t), t.device.type)
+                for t in real]
+        check(got == want, f"phase 40: {label}: the shape rule gives "
+                           f"{got}, the launch {want}")
+        print(f"[dryrun] {label}: the shape rule's outputs "
+              f"{[(s, str(d)[6:], st) for s, d, st, _ in got]} equal the "
+              f"launch's", flush=True)
+        del real, fake
+    del cases, x50, p4, s4, qf, kf, vf, qm, km, vm, om, lm, a4, a2, wp
+    torch.cuda.empty_cache()
+
+
+def dispatch_cost(dev, card: str) -> None:
+    """Host µs a call of pso_update on small tensors: through its
+    operator (the dispatcher calls the Python CUDA implementation) and
+    straight (`runtime.direct`'s path, the wrappers' on plain CUDA
+    tensors); the best of 5 batches of 2000 calls each."""
+    import torch
+    from repro_torch.kernels.pso_update import ops as pops
+    w = torch.randn((2, 64, 128), device=dev).to(torch.bfloat16)
+    args = (torch.rand((2, 4), device=dev), w, w, w, w[0].contiguous(), w)
+
+    def host_us(fn, n=2000):
+        best = float("inf")
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(*args)
+            best = min(best, (time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+        return best
+    via_op, direct = host_us(pops.PSO_UPDATE), host_us(pops._pso_cuda)
+    print(f"[dryrun] pso_update host cost a call, (2, 64, 128) bf16: through "
+          f"the operator {via_op:.2f} µs, straight {direct:.2f} µs (the "
+          f"dispatcher's Python-kernel call {via_op - direct:.2f} µs) "
+          f"({card})", flush=True)
+
+
+def dryrun_step_check(dev, card: str) -> None:
+    """Phase 37's step dry-run (fake tensors on the same 1 x 1 mesh)
+    against the real round: the same cost model over the real tensors
+    reads the same FLOPs, and the predicted peak of live bytes is within
+    PEAK_TOL of the allocator's peak for the round (beyond what the card
+    held before the round's inputs were made)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import swarm_dist
+    from repro_torch.launch import dryrun, op_costmodel, steps
+
+    mesh = one_rank_mesh(dev)
+    built = steps.build_step(get_arch(MESH_ARCH), InputShape(
+        "train", STEP_S, STEP_B, "train"), mesh)
+    fake, _, trace_s = dryrun.dry_run(built, mesh, "cuda")
+    dcfg, model = built.meta["dcfg"], built.meta["model"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev).manual_seed(37)
+    params = model.init(gen, dev)
+    state = swarm_dist.init_state(params, dcfg)
+    cfg = built.cfg
+    toks = torch.randint(0, cfg.vocab_size, (1, STEP_B, STEP_S),
+                         generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, dims=-1)}
+    et = torch.randint(0, cfg.vocab_size, (steps.EVAL_BATCH, STEP_S),
+                       generator=gen, device=dev, dtype=torch.int32)
+    ev = {"tokens": et, "labels": torch.roll(et, -1, dims=-1)}
+    draws = swarm_dist.sample_draws(gen, dcfg, params, dev, 0)
+    lay = built.layouts
+    args = (steps.place(state, lay[0], mesh), steps.place(batch, lay[1], mesh),
+            steps.place(ev, lay[2], mesh), draws)
+    del params, state
+    warm = built.fn(*args)          # DTensor's caches warm, as phase 37
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, cm = op_costmodel.count_step(built.fn, args,
+                                      parts=dryrun.arg_parts(built, args))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    real = cm.summary(out)
+    del out, args
+    torch.cuda.empty_cache()
+    pred = fake["memory"]["peak_bytes"]
+    miss = abs(pred - peak) / peak
+    gib = 2 ** 30
+    brk = fake["peak_breakdown"]
+    top = list(brk["temporaries"].items())[:8]
+    print(f"[dryrun] phase 37's step ({MESH_ARCH} full width, W 1, B "
+          f"{STEP_B}, S {STEP_S}, the 1 x 1 mesh), traced on fake tensors in "
+          f"{trace_s:.1f} s: predicted peak {pred / gib:.3f} GiB "
+          f"(arguments {fake['memory']['argument_bytes'] / gib:.3f}, "
+          f"temporaries at the peak "
+          f"{(pred - fake['memory']['argument_bytes']) / gib:.3f}) against "
+          f"the allocator's {peak / gib:.3f} GiB for the real round "
+          f"({miss:.2%} apart; the counter over the real tensors reads "
+          f"{real['memory']['peak_bytes'] / gib:.3f}); FLOPs fake "
+          f"{fake['flops']} real {real['flops']}, HBM bytes fake "
+          f"{fake['hbm_bytes']} real {real['hbm_bytes']} ({card})",
+          flush=True)
+    print(f"[dryrun] the predicted peak's breakdown: arguments "
+          f"{ {k: round(v / gib, 4) for k, v in brk['arguments'].items() if v} } "
+          f"GiB; temporaries by issuing function (top 8) "
+          f"{ {k: round(v / gib, 4) for k, v in top} } GiB", flush=True)
+    check(fake["flops"] == real["flops"], f"phase 40: the dry-run's FLOPs "
+          f"{fake['flops']} against the real round's {real['flops']}")
+    check(miss <= PEAK_TOL, f"phase 40: predicted peak {pred} B is "
+          f"{miss:.2%} from the allocator's {peak} B (tolerance "
+          f"{PEAK_TOL:.0%})")
+
+
+def dryrun_records(runs, card: str) -> None:
+    """Phase 40's production-mesh dry-runs: each record read back, its
+    per-rank peak against the card's memory and its dominant term."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as launch_mesh
+    gib = 2 ** 30
+    for cell, proc, log in runs:
+        try:
+            proc.wait(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"phase 40: the dry-run {cell} did not end in "
+                 f"{DRYRUN_TIMEOUT_S} s (log {log})")
+        path = dryrun.artifact_path(*cell, DRYRUN_TAG)
+        check(proc.returncode == 0 and path.exists(),
+              f"phase 40: the dry-run {cell} exited {proc.returncode}: "
+              f"{log.read_text()[-2000:]}")
+        rec = json.loads(path.read_text())
+        check(rec.get("ok"), f"phase 40: the dry-run {cell} recorded "
+                             f"{rec.get('error')}: "
+                             f"{rec.get('traceback', '')[-1500:]}")
+        peak, roof = rec["memory"]["peak_bytes"], rec["roofline"]
+        coll = {k: v for k, v in rec["collectives"]["by_kind_bytes"].items()
+                if v}
+        print(f"[dryrun] {' x '.join(cell)} ({rec['devices']} ranks, fake "
+              f"tensors on {rec['fake_device']}, traced in "
+              f"{rec['trace_s']} s): per-rank peak {peak / gib:.2f} GiB of "
+              f"the card's {launch_mesh.CHIP_HBM_BYTES / gib:.2f} "
+              f"({'fits' if peak <= launch_mesh.CHIP_HBM_BYTES else 'does not fit'}); "
+              f"{rec['flops_per_device']:.4g} FLOPs, "
+              f"{rec['hbm_bytes_per_device']:.4g} HBM bytes, collectives "
+              f"{coll}; dominant term {roof['dominant']} "
+              f"({roof['bound_step_s']:.4g} s a step; compute "
+              f"{roof['compute_s']:.4g}, memory {roof['memory_s']:.4g}, "
+              f"collective {roof['collective_s']:.4g}); useful FLOPs "
+              f"{roof['useful_flops_ratio']:.3f} ({card})", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3905,15 +4214,30 @@ def main() -> None:
           f"{time.perf_counter() - t0 - mesh_time:.1f} s ({card})",
           flush=True)
 
-    t0 = time.perf_counter()
-    mesh_step_counts = mesh_step_path(dev, card)
-    ep_layer_check(dev, card)
+    # phase 40's production-mesh dry-runs (CPU work in subprocesses at the
+    # lowest priority, one thread each) start here, beside phases 37-39
+    runs = start_dryruns()
+    try:
+        t0 = time.perf_counter()
+        mesh_step_counts = mesh_step_path(dev, card)
+        ep_layer_check(dev, card)
+        print(f"[time] phases 37-39 (the sharded mesh path: build_step's "
+              f"round, the mesh serve, EP at Qwen3's layer width): "
+              f"{time.perf_counter() - t0 + mesh_time:.1f} s ({card})",
+              flush=True)
+        t0 = time.perf_counter()
+        fake_kernel_checks(dev)
+        dispatch_cost(dev, card)
+        dryrun_step_check(dev, card)
+        dryrun_records(runs, card)
+    finally:
+        stop_dryruns(runs)
     import torch.distributed as dist
     dist.destroy_process_group()
-    print(f"[time] phases 37-39 (the sharded mesh path: build_step's round, "
-          f"the mesh serve, EP at Qwen3's layer width): "
-          f"{time.perf_counter() - t0 + mesh_time:.1f} s ({card})",
-          flush=True)
+    print(f"[time] phase 40 (the dry-run: the kernels' shape rules, phase "
+          f"37's step predicted and measured, three production-mesh "
+          f"dry-runs, started before phase 37): "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
 
     src = {"quant_pack_ef": ("quant_pack",
                              "src/repro/kernels/quant_pack/quant_pack.py:172"),

@@ -13,7 +13,15 @@ sub-mesh. No JAX: the parity with the reference is the CPU tests'.
 
 Each case prints its time, launches (rank 0) and largest difference;
 the exit code is 0 when every case is within TOL (the boundary's
-quantize-pack, scan and Eq. 8 bitwise, the init bitwise)."""
+quantize-pack, scan and Eq. 8 bitwise, the init bitwise).
+
+The dryrun case, on the (2, 2) mesh: each rank's cost-model counts
+(`launch/op_costmodel.py`: FLOPs, HBM bytes, the arguments' bytes,
+collective bytes and counts by kind, the live bytes' peak) of a reduced
+smollm-360m train round and prefill on real tensors equal, number for
+number, those of the same rank in the fake (2, 2) dry-run (`launch/dryrun.py`'s analysis: fake
+tensors on a fake process group of 4 ranks, run in this process before
+the ranks start)."""
 import argparse
 import datetime
 import sys
@@ -45,8 +53,33 @@ def _workers(arch: str, kind: str, mesh_shape: tuple) -> int:
             and not arch.startswith("qwen3") else 1)
 
 
+def dryrun_expected(mesh_shape: tuple) -> dict:
+    """{(arch, kind): [each rank's counts]} of the fake dry-run."""
+    import torch_mesh_worker as mw
+    world = int(np.prod(mesh_shape))
+    return {case: [mw.dryrun_fake(*case, mesh_shape, r)
+                   for r in range(world)] for case in mw.DRYRUN}
+
+
+def dryrun_check(name: str, rank: int, mesh, dev, expected: dict) -> bool:
+    """This rank's real counts against its fake ones; each rank prints
+    what differs, rank 0 the counts."""
+    import torch_mesh_worker as mw
+    ok = True
+    for case, want in expected.items():
+        got = mw.dryrun_real(*case, mesh, device=dev)
+        diff = {k: (got[k], want[rank][k]) for k in want[rank]
+                if got[k] != want[rank][k]}
+        if diff or rank == 0:
+            print(f"[mesh] {name} dryrun {' '.join(case)} rank {rank}: "
+                  f"real {got} {'PASS' if not diff else f'FAIL {diff}'}",
+                  flush=True)
+        ok &= not diff
+    return ok
+
+
 def rank_main(rank: int, world: int, store: str, backend: str,
-              mesh_shape: tuple) -> None:
+              mesh_shape: tuple, expected: dict) -> None:
     _paths()
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -137,6 +170,8 @@ def rank_main(rank: int, world: int, store: str, backend: str,
                       f"{abs(float(ep['aux']) - float(aux)):.3e} "
                       f"{'PASS' if d <= TOL else 'FAIL'}", flush=True)
                 ok &= d <= TOL
+        if expected:
+            ok &= dryrun_check(name, rank, mesh, dev, expected)
         dist.barrier()
     except Exception:
         traceback.print_exc()
@@ -151,9 +186,10 @@ def run(backend: str, mesh_shape: tuple, store_dir: str) -> bool:
     import torch.multiprocessing as mp
     world = int(np.prod(mesh_shape))
     store = f"{store_dir}/store-{'x'.join(map(str, mesh_shape))}"
+    expected = dryrun_expected(mesh_shape) if mesh_shape == (2, 2) else {}
     try:
         mp.start_processes(rank_main, args=(world, store, backend,
-                                            mesh_shape),
+                                            mesh_shape, expected),
                            nprocs=world, join=True, start_method="spawn")
     except Exception as e:
         print(f"[mesh] {mesh_shape} ranks failed: {e}", flush=True)

@@ -41,7 +41,8 @@ from repro_torch.comm.phy import PhyState
 from repro_torch.core import selection
 from repro_torch.core.selection import SelectionState
 from repro_torch.obs.trace import stage_span
-from repro_torch.pytree import tree_leaves, tree_map
+from repro_torch.pytree import (tree_flatten, tree_leaves, tree_map,
+                                tree_unflatten)
 
 PyTree = Any
 
@@ -366,14 +367,40 @@ def accumulated_grad(grad_fn: Callable, params: PyTree, batch: PyTree,
         return grad_fn(params, batch)
     k = microbatches
     f32 = torch.float32
-    total = tree_map(lambda x: torch.zeros(x.shape, dtype=f32,
-                                           device=x.device), params)
+    # laid out as each param (a DTensor param's accumulator is its shards,
+    # not a whole leaf on every rank)
+    total = tree_map(lambda x: torch.zeros_like(x, dtype=f32), params)
+    leaves, treedef = tree_flatten(batch)
+    chunks = [_chunked(x, k) for x in leaves]
     for i in range(k):
-        mb = tree_map(lambda x: x.reshape((k, x.shape[0] // k)
-                                          + tuple(x.shape[1:]))[i], batch)
+        mb = tree_unflatten(treedef, [c[i] for c in chunks])
         total = tree_map(lambda s, g: s + g.to(f32), total,
                          grad_fn(params, mb))
     return tree_map(lambda g, p: (g / k).to(p.dtype), total, params)
+
+
+def _chunked(x: torch.Tensor, k: int):
+    """x's leading dim as k contiguous chunks: a (k, n / k, ...) view, or
+    for a DTensor whose row shards straddle the chunks (k chunks over
+    more shards than divide k; an FSDP worker's batch on a 16-way data
+    axis), the list of chunks cut from the rows gathered over those
+    shards (token ids: a small copy), each laid out as x was."""
+    from repro_torch.sharding.rules import is_dtensor
+    rows = x.shape[0] // k
+    if is_dtensor(x):
+        mesh, pl = x.device_mesh, tuple(x.placements)
+        shards = 1
+        for m, p in enumerate(pl):
+            if p.is_shard(0):
+                shards *= mesh.size(m)
+        if shards > 1 and k % shards:
+            from torch.distributed.tensor import Replicate
+            whole = x.redistribute(mesh, [Replicate() if p.is_shard(0)
+                                          else p for p in pl])
+            parts = [whole[i * rows:(i + 1) * rows] for i in range(k)]
+            return [p.redistribute(mesh, pl) if rows % shards == 0 else p
+                    for p in parts]
+    return x.reshape((k, rows) + tuple(x.shape[1:]))
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,13 @@
 kv-head indexing, suffix alignment (q_offset = Sk - Sq by default) and a
 valid kv length.
 
-Dispatch is by the device of q: a CPU tensor takes the plain versions
-(ref.py), a CUDA tensor launches csrc/flash_attention.cu and, for the
-gradient, csrc/flash_attention_bwd.cu (or raises). The kernels take
+The launches are operators (`runtime.register_op`:
+repro_torch::flash_attention, flash_attention_lse, flash_attention_bwd):
+the dispatcher sends a CPU tensor to the plain versions (ref.py), a CUDA
+tensor to csrc/flash_attention.cu and, for the gradient,
+csrc/flash_attention_bwd.cu (or raises), a fake tensor to the shape
+rule. Each counts 4 hd operations a visited (query, key) pair forward
+and 10 hd backward (`visited_pairs`). The kernels take
 ragged lengths and index kv head h // (H // K), so there is no padding
 and no repeat of k and v.
 
@@ -38,6 +42,7 @@ import ctypes
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import runtime
@@ -142,16 +147,15 @@ def _check(dev, dtype, named: dict, tma: bool = False) -> None:
                              f"{t.stride()} not multiples of 16 bytes")
 
 
-def _forward(q, k, v, causal, window, q_offset, kv_len, want_lse: bool):
-    """(out, lse or None); lse is (B, H, Sq) f32."""
+def _forward_cuda(q, k, v, causal, window, q_offset, kv_len, want_lse):
+    """The forward kernel's launch: (out, lse or None); lse is (B, H, Sq)
+    f32. With `want_lse` (a backward follows) the backward's library
+    must be built for the head dim: checked before the forward runs."""
     B, Sq, Sk, H, K, hd, q_offset, kv_len = _shapes(q, k, q_offset, kv_len)
-    if q.device.type == "cpu":
-        out, lse = attention_ref(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, kv_len=kv_len,
-                                 return_lse=True)
-        return out, (lse if want_lse else None)
-    _require_cuda(q, "flash_attention")
     padded_head_dim(hd)                   # raises on a head dim with no launch
+    if want_lse:
+        require_bwd_head_dim(hd)
+    _require_cuda(q, "flash_attention")
     lib = _lib()
     tc = q.dtype == torch.bfloat16 and bool(lib.fa_tc_supports_head_dim(hd))
     _check(q.device, q.dtype, {"q": (q, (B, Sq, H, hd)),
@@ -175,31 +179,50 @@ def _forward(q, k, v, causal, window, q_offset, kv_len, want_lse: bool):
     return out, lse
 
 
-def require_bwd_head_dim(hd: int) -> None:
-    """Raise on a head dim the backward kernels have no launch for: the
-    forward's rule (`padded_head_dim`), and what their library says it
-    is built for."""
-    padded_head_dim(hd)
-    if not _bwd_lib().fa_bwd_supports_head_dim(hd):
-        raise ValueError(f"flash_attention backward: no kernel for "
-                         f"head_dim {hd} (hd % 8 == 0 and hd <= 256)")
+def _forward_cpu(q, k, v, causal, window, q_offset, kv_len):
+    return attention_ref(q, k, v, causal=causal, window=window,
+                         q_offset=q_offset, kv_len=kv_len, return_lse=True)
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor, dout: torch.Tensor,
-                        lse: torch.Tensor, *, causal: bool = True,
-                        window: int = 0, q_offset: Optional[int] = None,
-                        kv_len: Optional[int] = None
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Gradients (dq, dk, dv) of `flash_attention` given its inputs, its
-    output, the output's gradient and the forward's (B, H, Sq) f32
-    log-sum-exp. dq is (B, Sq, H, hd) and dk, dv (B, Sk, K, hd), in q's
-    dtype; rows with no valid key get zero gradient."""
+def _forward_fake(q, k, v, causal, window, q_offset, kv_len):
+    """The shape rule: (out (B, Sq, H, hd) in q's dtype, lse (B, H, Sq)
+    f32), after the launch's own checks of the head dim and heads."""
     B, Sq, Sk, H, K, hd, q_offset, kv_len = _shapes(q, k, q_offset, kv_len)
-    if q.device.type == "cpu":
-        return attention_bwd_ref(q, k, v, out, dout, lse, causal=causal,
-                                 window=window, q_offset=q_offset,
-                                 kv_len=kv_len)
+    padded_head_dim(hd)
+    return (q.new_empty((B, Sq, H, hd)),
+            q.new_empty((B, H, Sq), dtype=torch.float32))
+
+
+def visited_pairs(Sq: int, Sk: int, causal: bool, window: int,
+                  q_offset: int, kv_len: int) -> int:
+    """The (query, key) pairs the mask leaves, for one batch row and
+    head: query i (position q_offset + i) sees keys j < min(kv_len, Sk),
+    j <= its position when causal, j > its position - window when
+    windowed (as ref.attention_mask)."""
+    pos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.full(Sq, min(kv_len, Sk), dtype=np.int64)
+    if causal:
+        hi = np.minimum(hi, pos + 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros_like(pos)
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def _pairs(q, k, causal, window, q_offset, kv_len) -> int:
+    B, Sq, Sk, H, K, hd, q_offset, kv_len = _shapes(q, k, q_offset, kv_len)
+    return B * H * visited_pairs(Sq, Sk, causal, window, q_offset, kv_len)
+
+
+def _forward_cost(q, k, v, causal, window, q_offset, kv_len, lse=False):
+    """4 hd operations a visited pair (two products); q read, out
+    written, k and v read once (and the f32 lse written)."""
+    pairs = _pairs(q, k, causal, window, q_offset, kv_len)
+    nbytes = (2 * runtime.nbytes(q) + runtime.nbytes(k) + runtime.nbytes(v)
+              + (4 * q.shape[0] * q.shape[1] * q.shape[2] if lse else 0))
+    return 4 * q.shape[3] * pairs, nbytes
+
+
+def _bwd_cuda(q, k, v, out, dout, lse, causal, window, q_offset, kv_len):
+    B, Sq, Sk, H, K, hd, q_offset, kv_len = _shapes(q, k, q_offset, kv_len)
     _require_cuda(q, "flash_attention backward")
     require_bwd_head_dim(hd)
     dev = q.device
@@ -238,6 +261,80 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _bwd_cpu(q, k, v, out, dout, lse, causal, window, q_offset, kv_len):
+    return attention_bwd_ref(q, k, v, out, dout, lse, causal=causal,
+                             window=window, q_offset=q_offset, kv_len=kv_len)
+
+
+def _bwd_fake(q, k, v, out, dout, lse, causal, window, q_offset, kv_len):
+    _shapes(q, k, q_offset, kv_len)
+    padded_head_dim(q.shape[3])
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _bwd_cost(q, k, v, out, dout, lse, causal, window, q_offset, kv_len):
+    """10 hd operations a visited pair (five products); q, out, dout read
+    and dq written, k, v read and dk, dv written, the f32 lse read."""
+    pairs = _pairs(q, k, causal, window, q_offset, kv_len)
+    return 10 * q.shape[3] * pairs, (
+        3 * runtime.nbytes(q) + 2 * runtime.nbytes(k) + 2 * runtime.nbytes(v)
+        + runtime.nbytes(dout) + runtime.nbytes(lse))
+
+
+_MASKS = "bool causal, int window, int q_offset, int kv_len"
+FLASH = runtime.register_op(
+    "flash_attention", f"(Tensor q, Tensor k, Tensor v, {_MASKS}) -> Tensor",
+    cuda=lambda *a: _forward_cuda(*a, want_lse=False)[0],
+    cpu=lambda *a: _forward_cpu(*a)[0],
+    fake=lambda *a: _forward_fake(*a)[0], cost=_forward_cost)
+FLASH_LSE = runtime.register_op(
+    "flash_attention_lse",
+    f"(Tensor q, Tensor k, Tensor v, {_MASKS}) -> (Tensor, Tensor)",
+    cuda=lambda *a: _forward_cuda(*a, want_lse=True), cpu=_forward_cpu,
+    fake=_forward_fake, cost=lambda *a: _forward_cost(*a, lse=True))
+FLASH_BWD = runtime.register_op(
+    "flash_attention_bwd",
+    f"(Tensor q, Tensor k, Tensor v, Tensor out, Tensor dout, Tensor lse, "
+    f"{_MASKS}) -> (Tensor, Tensor, Tensor)",
+    cuda=_bwd_cuda, cpu=_bwd_cpu, fake=_bwd_fake, cost=_bwd_cost)
+
+
+def _forward(q, k, v, causal, window, q_offset, kv_len, want_lse: bool):
+    """(out, lse or None); lse is (B, H, Sq) f32."""
+    B, Sq, Sk, H, K, hd, q_offset, kv_len = _shapes(q, k, q_offset, kv_len)
+    if runtime.direct(q):
+        return _forward_cuda(q, k, v, causal, window, q_offset, kv_len,
+                             want_lse)
+    if want_lse:
+        return FLASH_LSE(q, k, v, causal, window, q_offset, kv_len)
+    return FLASH(q, k, v, causal, window, q_offset, kv_len), None
+
+
+def require_bwd_head_dim(hd: int) -> None:
+    """Raise on a head dim the backward kernels have no launch for: the
+    forward's rule (`padded_head_dim`), and what their library says it
+    is built for."""
+    padded_head_dim(hd)
+    if not _bwd_lib().fa_bwd_supports_head_dim(hd):
+        raise ValueError(f"flash_attention backward: no kernel for "
+                         f"head_dim {hd} (hd % 8 == 0 and hd <= 256)")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, q_offset: Optional[int] = None,
+                        kv_len: Optional[int] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of `flash_attention` given its inputs, its
+    output, the output's gradient and the forward's (B, H, Sq) f32
+    log-sum-exp. dq is (B, Sq, H, hd) and dk, dv (B, Sk, K, hd), in q's
+    dtype; rows with no valid key get zero gradient."""
+    B, Sq, Sk, H, K, hd, q_offset, kv_len = _shapes(q, k, q_offset, kv_len)
+    fn = _bwd_cuda if runtime.direct(q) else FLASH_BWD
+    return fn(q, k, v, out, dout, lse, causal, window, q_offset, kv_len)
+
+
 class FlashAttention(torch.autograd.Function):
     """Attention with a backward: the forward kernel keeps the
     log-sum-exp and the backward kernel recomputes P from it. Under
@@ -246,8 +343,6 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, q_offset, kv_len):
-        if q.device.type != "cpu":
-            require_bwd_head_dim(q.shape[-1])    # fail before the forward
         out, lse = _forward(q, k, v, causal, window, q_offset, kv_len,
                             want_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -7,8 +7,10 @@ stacked leaf of the swarm state:
 with per-worker coefficients. This is the LocalUpdate of
 `core/swarm_dist`: one launch per leaf per round for all W workers.
 
-Dispatch is by the device of w: a CPU tensor takes the plain version
-(ref.py), a CUDA tensor launches csrc/pso_update.cu (or raises). The
+The launch is the operator repro_torch::pso_update
+(`runtime.register_op`): the dispatcher sends a CPU tensor to the plain
+version (ref.py), a CUDA tensor to csrc/pso_update.cu (or raises), a
+fake tensor to the shape rule. The
 kernel takes the leaf flat, (W, n), with wg (n,) broadcast over the
 workers, so no padding to blocks is needed.
 """
@@ -37,19 +39,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def pso_update(coefs: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
-               wl: torch.Tensor, wg: torch.Tensor, d: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """coefs (W, 4) f32 rows (c0, c1, c2, clip), clip <= 0 = no clip;
-    w, v, wl, d (W, *leaf) and wg (*leaf), all f32 or all bf16.
-    Returns new (w', v') tensors in the leaf dtype. DTensor inputs run
-    on each rank's shards (`sharding.boundary.pso`)."""
-    if any(is_dtensor(t) for t in (coefs, w, v, wl, wg, d)):
-        return boundary.pso(pso_update, coefs, w, v, wl, wg, d)
-    if w.device.type == "cpu":
-        return pso_update_ref(coefs, w, v, wl, wg, d)
-    if w.device.type != "cuda":
-        raise ValueError(f"no kernel for device {w.device}")
+def _pso_cuda(coefs, w, v, wl, wg, d):
+    runtime.require_cuda(w)
     if w.dtype not in _DTYPES:
         raise ValueError(f"pso_update: dtype {w.dtype} not f32/bf16")
     W, leaf = w.shape[0], tuple(w.shape[1:])
@@ -73,3 +64,36 @@ def pso_update(coefs: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
     runtime.check(err, "pso_update")
     runtime.note_launch("pso_update")
     return w_out, v_out
+
+
+def _pso_fake(coefs, w, v, wl, wg, d):
+    if w.dtype not in _DTYPES:
+        raise ValueError(f"pso_update: dtype {w.dtype} not f32/bf16")
+    return torch.empty_like(w), torch.empty_like(v)
+
+
+def _pso_cost(coefs, w, v, wl, wg, d):
+    """8 operations an element of the W stacked leaves; w, v, wl, d in,
+    w', v' out, wg once, the (W, 4) coefficients."""
+    n = w.numel()
+    return 8 * n, w.element_size() * (6 * n + wg.numel()) + 16 * w.shape[0]
+
+
+PSO_UPDATE = runtime.register_op(
+    "pso_update",
+    "(Tensor coefs, Tensor w, Tensor v, Tensor wl, Tensor wg, Tensor d) "
+    "-> (Tensor, Tensor)",
+    cuda=_pso_cuda, cpu=pso_update_ref, fake=_pso_fake, cost=_pso_cost)
+
+
+def pso_update(coefs: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
+               wl: torch.Tensor, wg: torch.Tensor, d: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """coefs (W, 4) f32 rows (c0, c1, c2, clip), clip <= 0 = no clip;
+    w, v, wl, d (W, *leaf) and wg (*leaf), all f32 or all bf16.
+    Returns new (w', v') tensors in the leaf dtype. DTensor inputs run
+    on each rank's shards (`sharding.boundary.pso`)."""
+    if any(is_dtensor(t) for t in (coefs, w, v, wl, wg, d)):
+        return boundary.pso(pso_update, coefs, w, v, wl, wg, d)
+    fn = _pso_cuda if runtime.direct(w) else PSO_UPDATE
+    return fn(coefs, w, v, wl, wg, d)

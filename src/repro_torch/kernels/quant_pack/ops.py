@@ -7,8 +7,10 @@ Every function takes a leading worker dimension C: the kernels run all
 workers of a leaf in one launch (grid over block x worker), where the
 JAX package vmaps a per-worker call. The downlink passes C = 1.
 
-Dispatch is by the device of the input: CPU tensors take the plain
-versions in ref.py, CUDA tensors launch the kernel (or raise). Each
+Each launch is an operator (`runtime.register_op`: repro_torch::
+quant_pack, quant_pack_ef, dequant_unpack), so the dispatcher picks by
+the device: CPU tensors take the plain versions in ref.py, CUDA tensors
+launch the kernel (or raise), fake tensors get the outputs' shapes. Each
 2D wrapper reports its dispatch to the obs bus (`runtime.note_dispatch`).
 
 The quantize-pack launch is `_plan`'s: each (256, 128) tile and worker
@@ -90,33 +92,27 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _is_cpu(t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
-        return True
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t.device}")
-    return False
-
-
-def _launch_quant_pack(x, residual, seeds, bits, name):
+def _pack_plan(x, bits, name) -> PackPlan:
+    """`_plan` of (C, rows, 128) x: the launch's and the shape rule's
+    checks."""
     C, rows, lanes = x.shape
     if lanes != LANES:
         raise ValueError(f"{name}: x must be (C, rows, 128), got "
                          f"{tuple(x.shape)}")
-    plan = _plan(C, rows, bits)
+    return _plan(C, rows, bits)
+
+
+def _launch_quant_pack(x, residual, seeds, bits, name):
+    runtime.require_cuda(x)
+    plan = _pack_plan(x, bits, name)
+    C, rows, _ = x.shape
     dev = x.device
     runtime.require(x, torch.float32, (C, rows, LANES), f"{name} x", dev)
     if residual is not None:
         runtime.require(residual, torch.float32, (C, rows, LANES),
                         f"{name} residual", dev)
     runtime.require(seeds, torch.int32, (C,), f"{name} seeds", dev)
-    nb = rows // BLOCK_ROWS
-    if bits == 8:
-        packed = torch.empty((C, rows, LANES), dtype=torch.int8, device=dev)
-    else:
-        packed = torch.empty((C, rows // 2, LANES), dtype=torch.uint8,
-                             device=dev)
-    scales = torch.empty((C, nb), dtype=torch.float32, device=dev)
+    packed, scales = _pack_outputs(x, bits)
     res = (None if residual is None
            else torch.empty((C, rows, LANES), dtype=torch.float32, device=dev))
     err = _lib().qp_quant_pack(
@@ -129,47 +125,48 @@ def _launch_quant_pack(x, residual, seeds, bits, name):
     return packed, scales, res
 
 
-def quant_pack_2d(x: torch.Tensor, seeds: torch.Tensor, *, bits: int = 8
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Quantize + pack on (C, rows, 128) f32 with (C,) int32 seeds.
-    Returns packed (C, rows, 128) int8 / (C, rows/2, 128) uint8 and
-    scales (C, rows/256) f32."""
-    cpu = _is_cpu(x)
-    runtime.note_dispatch("quant_pack", cpu, bits=bits)
-    if cpu:
-        return quant_pack_ref(x, seeds, bits=bits)
-    packed, scales, _ = _launch_quant_pack(x, None, seeds, bits,
-                                           "quant_pack")
-    return packed, scales
+def _pack_outputs(x, bits):
+    """Empty (packed, scales) for (C, rows, 128) f32 x at `bits`."""
+    C, rows, _ = x.shape
+    packed = (x.new_empty((C, rows, LANES), dtype=torch.int8) if bits == 8
+              else x.new_empty((C, rows // 2, LANES), dtype=torch.uint8))
+    return packed, x.new_empty((C, rows // BLOCK_ROWS), dtype=torch.float32)
 
 
-def quant_pack_ef_2d(x: torch.Tensor, residual: torch.Tensor,
-                     seeds: torch.Tensor, *, bits: int = 8
-                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Fused uplink pass on (C, rows, 128): quantize + pack x + residual
-    and return the new error-feedback residual in the same pass."""
-    cpu = _is_cpu(x)
-    runtime.note_dispatch("quant_pack_ef", cpu, bits=bits)
-    if cpu:
-        return quant_pack_ef_ref(x, residual, seeds, bits=bits)
-    return _launch_quant_pack(x, residual, seeds, bits, "quant_pack_ef")
+def _fake_pack(x, bits, name):
+    """The kernel's shape rule: the launch's checks, then the outputs."""
+    _pack_plan(x, bits, name)
+    return _pack_outputs(x, bits)
 
 
-def dequant_unpack_2d(packed: torch.Tensor, scales: torch.Tensor, *,
-                      bits: int = 8) -> torch.Tensor:
-    """Decode packed (C, rows[/2], 128) + scales (C, nb) -> (C, rows,
-    128) f32."""
-    cpu = _is_cpu(packed)
-    runtime.note_dispatch("dequant_unpack", cpu, bits=bits)
-    if cpu:
-        return dequant_unpack_ref(packed, scales, bits=bits)
+def _pack_cost(x, residual, seeds, bits):
+    """quant_pack(_ef)'s operations (23 an element, 25 with error
+    feedback) and bytes: x (and the residual in and out), the seeds, the
+    payload and the scales."""
+    n = x.numel()
+    C, rows = x.shape[0], x.shape[1]
+    out = n // (8 // bits) + 4 * C * (rows // BLOCK_ROWS)
+    if residual is None:
+        return 23 * n, 4 * n + 4 * C + out
+    return 25 * n, 12 * n + 4 * C + out
+
+
+def packed_rows(packed, bits, what: str) -> int:
+    """The output rows of a (C, rows[/2], 128) payload at `bits`: the
+    decoding launches' and their shape rules' check."""
     if bits not in (8, 4):
         raise ValueError(f"bits must be 8 or 4, got {bits}")
-    C, prow, lanes = packed.shape
+    _, prow, lanes = packed.shape
     rows = prow * (2 if bits == 4 else 1)
     if lanes != LANES or rows % BLOCK_ROWS:
-        raise ValueError(f"dequant_unpack: bad packed shape "
-                         f"{tuple(packed.shape)}")
+        raise ValueError(f"{what}: bad packed shape {tuple(packed.shape)}")
+    return rows
+
+
+def _dequant_cuda(packed, scales, bits):
+    runtime.require_cuda(packed)
+    rows = packed_rows(packed, bits, "dequant_unpack")
+    C, prow, _ = packed.shape
     plan = _dequant_plan(C, rows, bits)
     dev = packed.device
     runtime.require(packed, torch.int8 if bits == 8 else torch.uint8,
@@ -186,6 +183,80 @@ def dequant_unpack_2d(packed: torch.Tensor, scales: torch.Tensor, *,
     runtime.check(err, "dequant_unpack")
     runtime.note_launch("dequant_unpack", workers=C)
     return out
+
+
+def _dequant_fake(packed, scales, bits):
+    rows = packed_rows(packed, bits, "dequant_unpack")
+    _dequant_plan(packed.shape[0], rows, bits)
+    return packed.new_empty((packed.shape[0], rows, LANES),
+                            dtype=torch.float32)
+
+
+def _dequant_cost(packed, scales, bits):
+    """2 operations an output element; the payload and scales in, the
+    f32 output."""
+    n = packed.numel() * (8 // bits)
+    return 2 * n, runtime.nbytes(packed) + runtime.nbytes(scales) + 4 * n
+
+
+QUANT_PACK = runtime.register_op(
+    "quant_pack", "(Tensor x, Tensor seeds, int bits) -> (Tensor, Tensor)",
+    cuda=lambda x, seeds, bits: _launch_quant_pack(
+        x, None, seeds, bits, "quant_pack")[:2],
+    cpu=lambda x, seeds, bits: quant_pack_ref(x, seeds, bits=bits),
+    fake=lambda x, seeds, bits: _fake_pack(x, bits, "quant_pack"),
+    cost=lambda x, seeds, bits: _pack_cost(x, None, seeds, bits))
+QUANT_PACK_EF = runtime.register_op(
+    "quant_pack_ef",
+    "(Tensor x, Tensor residual, Tensor seeds, int bits) "
+    "-> (Tensor, Tensor, Tensor)",
+    cuda=lambda x, residual, seeds, bits: _launch_quant_pack(
+        x, residual, seeds, bits, "quant_pack_ef"),
+    cpu=lambda x, residual, seeds, bits: quant_pack_ef_ref(
+        x, residual, seeds, bits=bits),
+    fake=lambda x, residual, seeds, bits: (
+        *_fake_pack(x, bits, "quant_pack_ef"), torch.empty_like(x)),
+    cost=_pack_cost)
+DEQUANT_UNPACK = runtime.register_op(
+    "dequant_unpack", "(Tensor packed, Tensor scales, int bits) -> Tensor",
+    cuda=_dequant_cuda,
+    cpu=lambda packed, scales, bits: dequant_unpack_ref(packed, scales,
+                                                        bits=bits),
+    fake=_dequant_fake, cost=_dequant_cost)
+
+
+def quant_pack_2d(x: torch.Tensor, seeds: torch.Tensor, *, bits: int = 8
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Quantize + pack on (C, rows, 128) f32 with (C,) int32 seeds.
+    Returns packed (C, rows, 128) int8 / (C, rows/2, 128) uint8 and
+    scales (C, rows/256) f32."""
+    runtime.note_dispatch("quant_pack", x.device.type == "cpu", bits=bits)
+    if runtime.direct(x):
+        return _launch_quant_pack(x, None, seeds, bits, "quant_pack")[:2]
+    return QUANT_PACK(x, seeds, bits)
+
+
+def quant_pack_ef_2d(x: torch.Tensor, residual: torch.Tensor,
+                     seeds: torch.Tensor, *, bits: int = 8
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused uplink pass on (C, rows, 128): quantize + pack x + residual
+    and return the new error-feedback residual in the same pass."""
+    runtime.note_dispatch("quant_pack_ef", x.device.type == "cpu",
+                          bits=bits)
+    if runtime.direct(x):
+        return _launch_quant_pack(x, residual, seeds, bits, "quant_pack_ef")
+    return QUANT_PACK_EF(x, residual, seeds, bits)
+
+
+def dequant_unpack_2d(packed: torch.Tensor, scales: torch.Tensor, *,
+                      bits: int = 8) -> torch.Tensor:
+    """Decode packed (C, rows[/2], 128) + scales (C, nb) -> (C, rows,
+    128) f32."""
+    runtime.note_dispatch("dequant_unpack", packed.device.type == "cpu",
+                          bits=bits)
+    if runtime.direct(packed):
+        return _dequant_cuda(packed, scales, bits)
+    return DEQUANT_UNPACK(packed, scales, bits)
 
 
 # ---------------------------------------------------------------------------

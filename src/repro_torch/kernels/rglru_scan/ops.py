@@ -2,10 +2,12 @@
 backward.
 
 `rglru_scan(h0, a, b)` returns (states, final) as the JAX package's
-`kernels.rglru_scan.ops.rglru_scan` does. Dispatch is by the device of
-`a`: a CPU tensor takes the plain versions (ref.py), a CUDA tensor
-launches csrc/rglru_scan.cu (or raises). The kernel takes any sequence
-length, so there is no identity-step padding. When a gradient is wanted
+`kernels.rglru_scan.ops.rglru_scan` does. The launches are operators
+(`runtime.register_op`: repro_torch::rglru_scan, rglru_scan_bwd): the
+dispatcher sends a CPU tensor to the plain versions (ref.py), a CUDA
+tensor to csrc/rglru_scan.cu (or raises), a fake one to the shape
+rule. The kernel takes any sequence length, so there is no
+identity-step padding. When a gradient is wanted
 the scan runs under `_Scan`, an autograd Function whose backward is
 `rglru_scan_bwd_raw` (csrc/rglru_scan_bwd.cu on a card, the plain
 reverse loop on the CPU); the reference gets that gradient from XLA's
@@ -110,13 +112,8 @@ def _aligned(what: str, *ts: torch.Tensor) -> None:
         raise ValueError(f"{what}: inputs must be 16-byte aligned (TMA)")
 
 
-def rglru_scan_raw(h0: torch.Tensor, a: torch.Tensor,
-                   b: torch.Tensor) -> torch.Tensor:
-    """h0 (B, D), a and b (B, S, D), all f32 -> states (B, S, D) f32."""
-    if a.device.type == "cpu":
-        return rglru_scan_ref(h0, a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"no kernel for device {a.device}")
+def _scan_cuda(h0, a, b):
+    runtime.require_cuda(a)
     B, S, D = a.shape
     dev = a.device
     runtime.require(h0, torch.float32, (B, D), "rglru_scan h0", dev)
@@ -134,15 +131,8 @@ def rglru_scan_raw(h0: torch.Tensor, a: torch.Tensor,
     return out
 
 
-def rglru_scan_bwd_raw(h0: torch.Tensor, a: torch.Tensor,
-                       states: torch.Tensor, g: torch.Tensor
-                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """h0 (B, D), a, states and g (the gradient of the states) (B, S, D),
-    all f32 -> (dh0 (B, D), da, db (B, S, D)) f32."""
-    if a.device.type == "cpu":
-        return rglru_scan_bwd_ref(h0, a, states, g)
-    if a.device.type != "cuda":
-        raise ValueError(f"no kernel for device {a.device}")
+def _scan_bwd_cuda(h0, a, states, g):
+    runtime.require_cuda(a)
     B, S, D = a.shape
     dev = a.device
     runtime.require(h0, torch.float32, (B, D), "rglru_scan_bwd h0", dev)
@@ -162,6 +152,62 @@ def rglru_scan_bwd_raw(h0: torch.Tensor, a: torch.Tensor,
     runtime.check(err, "rglru_scan_bwd")
     runtime.note_launch("rglru_scan_bwd")
     return dh0, da, db
+
+
+def _scan_fake(h0, a, b):
+    B, S, D = a.shape
+    _plan(B, S, D)
+    return a.new_empty((B, S, D), dtype=torch.float32)
+
+
+def _scan_bwd_fake(h0, a, states, g):
+    B, S, D = a.shape
+    _bwd_plan(B, S, D)
+    f32 = torch.float32
+    return (a.new_empty((B, D), dtype=f32), a.new_empty((B, S, D), dtype=f32),
+            a.new_empty((B, S, D), dtype=f32))
+
+
+def _scan_cost(h0, a, b):
+    """2 operations a state; a and b in, the states out (f32), h0 in and
+    its (B, D) once more."""
+    B, S, D = a.shape
+    n = B * S * D
+    return 2 * n, 12 * n + 8 * B * D
+
+
+def _scan_bwd_cost(h0, a, states, g):
+    """3 operations a state; a, the states and g in, da and db out (f32),
+    h0 in and dh0 out."""
+    B, S, D = a.shape
+    n = B * S * D
+    return 3 * n, 20 * n + 8 * B * D
+
+
+RGLRU_SCAN = runtime.register_op(
+    "rglru_scan", "(Tensor h0, Tensor a, Tensor b) -> Tensor",
+    cuda=_scan_cuda, cpu=rglru_scan_ref, fake=_scan_fake, cost=_scan_cost)
+RGLRU_SCAN_BWD = runtime.register_op(
+    "rglru_scan_bwd",
+    "(Tensor h0, Tensor a, Tensor states, Tensor g) -> (Tensor, Tensor, "
+    "Tensor)",
+    cuda=_scan_bwd_cuda, cpu=rglru_scan_bwd_ref, fake=_scan_bwd_fake,
+    cost=_scan_bwd_cost)
+
+
+def rglru_scan_raw(h0: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """h0 (B, D), a and b (B, S, D), all f32 -> states (B, S, D) f32."""
+    return (_scan_cuda if runtime.direct(a) else RGLRU_SCAN)(h0, a, b)
+
+
+def rglru_scan_bwd_raw(h0: torch.Tensor, a: torch.Tensor,
+                       states: torch.Tensor, g: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """h0 (B, D), a, states and g (the gradient of the states) (B, S, D),
+    all f32 -> (dh0 (B, D), da, db (B, S, D)) f32."""
+    fn = _scan_bwd_cuda if runtime.direct(a) else RGLRU_SCAN_BWD
+    return fn(h0, a, states, g)
 
 
 class _Scan(torch.autograd.Function):

@@ -18,6 +18,22 @@ the source, every shared header (`csrc/*.cuh`) and the flags.
 plain C interface (pointers and the stream as `void*`, each function
 returns `cudaGetLastError()`), loaded with `ctypes` — no PyTorch
 headers, so a build takes seconds.
+
+Operators: every launch site is an operator of the `repro_torch`
+namespace (`register_op`, PyTorch's low-level `torch.library.Library`
+registration: a dispatcher call and no Python layer of its own), so the
+dispatcher picks the implementation by the device (a plain CUDA tensor
+with no dispatch mode active skips the dispatcher for the one it would
+pick, `direct`): the CUDA one is the
+kernel's `ctypes` launch (which counts it in `note_launch`), the CPU one
+the plain version, and the fake one gives the outputs' shapes, dtypes
+and strides only (FakeTensorMode, meta tensors: no launch, no count),
+the part a Pallas call's abstract evaluation plays in the reference.
+Each operator's cost (`op_cost`: operations and the bytes it must move,
+each input read once and each output written once) is defined once,
+beside it; `torch.utils.flop_counter` reads its operations, the cost
+model (`launch/op_costmodel.py`) both, and chip_smoke.py's bound column
+the same definition.
 """
 from __future__ import annotations
 
@@ -29,7 +45,7 @@ import subprocess
 import threading
 from collections import Counter
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -53,6 +69,63 @@ _COUNTS: Counter = Counter()
 _BY_WORKERS: Counter = Counter()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+
+
+# the kernels' operators: repro_torch::<name>
+LIB = torch.library.Library("repro_torch", "DEF")
+# OpOverload -> cost(*args) -> (operations, bytes)
+_COSTS: dict = {}
+
+
+def register_op(name: str, schema: str, *, cuda: Callable, cpu: Callable,
+                fake: Callable, cost: Callable):
+    """Define the operator repro_torch::<name><schema> with a CUDA
+    implementation (the kernel's launch), a CPU one (the plain version),
+    a fake one (output shapes, dtypes and strides; it launches and
+    counts nothing) and `cost(*args) -> (operations, bytes)` from the
+    arguments' shapes, which `torch.utils.flop_counter` also reads.
+    Returns the operator's overload, which the wrappers call."""
+    from torch.utils.flop_counter import register_flop_formula
+    LIB.define(name + schema)
+    LIB.impl(name, cuda, "CUDA")
+    LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=LIB)
+    op = getattr(torch.ops.repro_torch, name)
+    register_flop_formula(op, get_raw=True)(
+        lambda *args, out_val=None, **kwargs: cost(*args, **kwargs)[0])
+    _COSTS[op.default] = cost
+    return op.default
+
+
+def direct(t: torch.Tensor) -> bool:
+    """Whether a wrapper calls its operator's CUDA implementation itself:
+    t is a plain CUDA tensor and no dispatch mode (a fake tensor mode, the
+    cost model) is active, so the dispatcher would pick that
+    implementation anyway. Letting the dispatcher call a Python kernel
+    costs several µs a call on the card's host (chip_smoke.py phase 40
+    measures it; PERF.md §6), more than a small kernel's eager call may
+    grow by; everything else (CPU, meta and fake tensors, any mode) goes
+    through the operator."""
+    return (type(t) is torch.Tensor and t.is_cuda
+            and not torch._C._len_torch_dispatch_stack())
+
+
+def op_cost(op, *args, **kwargs) -> Optional[tuple[int, int]]:
+    """(operations, bytes) of one call of a kernel operator, from its
+    arguments' shapes; None for any other operator."""
+    cost = _COSTS.get(op)
+    return None if cost is None else cost(*args, **kwargs)
+
+
+def require_cuda(t: torch.Tensor) -> None:
+    """A kernel launches on CUDA tensors only (the dispatcher sends it
+    nothing else; a direct call on another device raises)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+
+
+def nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def resolve_device(device=None) -> torch.device:

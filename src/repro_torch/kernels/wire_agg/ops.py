@@ -4,8 +4,9 @@
 returns the aggregated dense delta of the leaf's shape — the Aggregate
 half of the packed wire route (`comm.channel.receive_packed`).
 
-Dispatch is by the device of the payload: CPU tensors take the plain
-version (ref.py), CUDA tensors launch csrc/wire_agg.cu (or raise). All
+The launch is the operator repro_torch::wire_agg (`runtime.register_op`):
+the dispatcher sends CPU tensors to the plain version (ref.py), CUDA
+tensors to csrc/wire_agg.cu (or raises), fake tensors to the shape rule. All
 C workers go through one pass; the JAX package's chunked tree mean for
 C > 64 (a TPU VMEM limit) has no counterpart here, so at C > 64 the
 port's mean differs from it only in summation order.
@@ -27,6 +28,7 @@ import torch
 from repro_torch.kernels import runtime
 from repro_torch.sharding import boundary
 from repro_torch.sharding.rules import is_dtensor
+from repro_torch.kernels.quant_pack.ops import packed_rows
 from repro_torch.kernels.quant_pack.ref import BLOCK_ROWS, LANES
 from repro_torch.kernels.wire_agg.ref import (AGGREGATORS, TREE_MODES,
                                               wire_agg_ref)
@@ -109,28 +111,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def wire_agg_2d(packed: torch.Tensor, scales: torch.Tensor,
-                mask: torch.Tensor, weights: torch.Tensor, *, bits: int = 8,
-                aggregator: str = "mean", trim_ratio: float = 0.1
-                ) -> torch.Tensor:
-    """packed (C, rows, 128) int8 / (C, rows/2, 128) uint8, scales (C,
-    nb) f32, mask and weights (C,) f32 -> (rows, 128) f32."""
-    if aggregator not in TREE_MODES:
-        raise ValueError(f"unknown aggregator {aggregator!r}")
-    cpu = packed.device.type == "cpu"
-    runtime.note_dispatch("wire_agg", cpu, bits=bits, aggregator=aggregator,
-                          workers=packed.shape[0])
-    if cpu:
-        return wire_agg_ref(packed, scales, mask, weights, bits=bits,
-                            aggregator=aggregator, trim_ratio=trim_ratio)
-    if packed.device.type != "cuda":
-        raise ValueError(f"no kernel for device {packed.device}")
-    if bits not in (8, 4):
-        raise ValueError(f"bits must be 8 or 4, got {bits}")
-    C, prow, lanes = packed.shape
-    rows = prow * (2 if bits == 4 else 1)
-    if lanes != LANES or rows % BLOCK_ROWS:
-        raise ValueError(f"wire_agg: bad packed shape {tuple(packed.shape)}")
+def _wire_agg_cuda(packed, scales, mask, weights, bits, aggregator,
+                   trim_ratio):
+    runtime.require_cuda(packed)
+    rows = packed_rows(packed, bits, "wire_agg")
+    C, prow, _ = packed.shape
     plan = _plan(C, rows, bits, aggregator)
     lib = _lib()
     dev = packed.device
@@ -153,6 +138,52 @@ def wire_agg_2d(packed: torch.Tensor, scales: torch.Tensor,
     runtime.check(err, "wire_agg")
     runtime.note_launch("wire_agg", workers=C)
     return out
+
+
+def _wire_agg_fake(packed, scales, mask, weights, bits, aggregator,
+                   trim_ratio):
+    """The kernel's shape rule: the launch's checks, then the (rows, 128)
+    f32 output."""
+    rows = packed_rows(packed, bits, "wire_agg")
+    _plan(packed.shape[0], rows, bits, aggregator)
+    return packed.new_empty((rows, LANES), dtype=torch.float32)
+
+
+def _wire_agg_cost(packed, scales, mask, weights, bits, aggregator,
+                   trim_ratio):
+    """3 operations a decoded element of all C payloads; the payloads,
+    scales, mask and weights in, the f32 (rows, 128) out."""
+    n = packed.numel() * (8 // bits)
+    rows_out = n // packed.shape[0]
+    return 3 * n, (runtime.nbytes(packed) + runtime.nbytes(scales)
+                   + runtime.nbytes(mask) + runtime.nbytes(weights)
+                   + 4 * rows_out)
+
+
+WIRE_AGG = runtime.register_op(
+    "wire_agg",
+    "(Tensor packed, Tensor scales, Tensor mask, Tensor weights, int bits, "
+    "str aggregator, float trim_ratio) -> Tensor",
+    cuda=_wire_agg_cuda,
+    cpu=lambda packed, scales, mask, weights, bits, aggregator, trim_ratio:
+        wire_agg_ref(packed, scales, mask, weights, bits=bits,
+                     aggregator=aggregator, trim_ratio=trim_ratio),
+    fake=_wire_agg_fake, cost=_wire_agg_cost)
+
+
+def wire_agg_2d(packed: torch.Tensor, scales: torch.Tensor,
+                mask: torch.Tensor, weights: torch.Tensor, *, bits: int = 8,
+                aggregator: str = "mean", trim_ratio: float = 0.1
+                ) -> torch.Tensor:
+    """packed (C, rows, 128) int8 / (C, rows/2, 128) uint8, scales (C,
+    nb) f32, mask and weights (C,) f32 -> (rows, 128) f32."""
+    if aggregator not in TREE_MODES:
+        raise ValueError(f"unknown aggregator {aggregator!r}")
+    runtime.note_dispatch("wire_agg", packed.device.type == "cpu",
+                          bits=bits, aggregator=aggregator,
+                          workers=packed.shape[0])
+    fn = _wire_agg_cuda if runtime.direct(packed) else WIRE_AGG
+    return fn(packed, scales, mask, weights, bits, aggregator, trim_ratio)
 
 
 def wire_aggregate(packed: torch.Tensor, scales: torch.Tensor,

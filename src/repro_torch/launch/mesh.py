@@ -22,9 +22,13 @@ MULTI_POD_SHAPE = (2, 16, 16)
 MULTI_POD_AXES = ("pod", "data", "model")
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
     """The (16, 16) or (2, 16, 16) DeviceMesh over the default process
-    group's ranks, one card a rank."""
+    group's ranks, one card a rank. `device_type` "cpu" is for the
+    dry-run on a machine without CUDA (`launch/dryrun.py`: fake tensors
+    on a fake process group), where a CUDA tensor cannot even be
+    indexed."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -40,7 +44,7 @@ def make_production_mesh(*, multi_pod: bool = False):
             f"group of {want} ranks for the {shape} {axes} mesh; "
             + ("no process group is initialised" if have is None
                else f"the world size is {have}"))
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 # NVIDIA H100 80GB HBM3, 700.00 W (roofline targets per card)

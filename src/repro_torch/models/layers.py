@@ -210,9 +210,47 @@ def attention_init(gen, cfg, device, lead: tuple = ()) -> PyTree:
 
 
 def project(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B,S,D) x (D,N,hd) -> (B,S,N,hd) as one matmul."""
+    """(B,S,D) x (D,N,hd) -> (B,S,N,hd) as one matmul. A DTensor product
+    whose N x hd columns come out sharded over more shards than N heads
+    (Qwen3's 4 kv heads on a 16-way model axis) is gathered over them
+    first: DTensor cannot split such columns into (N, hd)."""
     B, S, D = h.shape
-    return torch.matmul(h, w.reshape(D, -1)).reshape(B, S, *w.shape[1:])
+    w2 = w.reshape(D, -1)
+    N = w.shape[1]
+    if is_dtensor(w2) and any(N % n for n in w2.device_mesh.shape):
+        # the weight's gradient may come back column-sharded alike: laid
+        # out as the weight before the reshape's backward splits it
+        w2 = _LaidOut.apply(w2)
+    y = torch.matmul(h, w2)
+    if is_dtensor(y) and N % _shards(y, y.ndim - 1):
+        from torch.distributed.tensor import Replicate
+        y = y.redistribute(y.device_mesh, [
+            Replicate() if p.is_shard(y.ndim - 1) else p
+            for p in y.placements])
+    return y.reshape(B, S, *w.shape[1:])
+
+
+def _shards(x, dim: int) -> int:
+    """How many shards a DTensor's dim is split into."""
+    n = 1
+    for m, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n *= x.device_mesh.size(m)
+    return n
+
+
+class _LaidOut(torch.autograd.Function):
+    """The identity on a DTensor whose gradient goes back laid out as
+    the input was."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements)
 
 
 def _decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -299,12 +337,15 @@ def attention_apply(params: PyTree, x: torch.Tensor, cfg, *, mode: str,
         ck, cv = layer_cache["k"], layer_cache["v"]
         cache_len = ck.shape[1]
         kk, vv, idx = k, v, positions[0, :] % cache_len
+        rows = range(pos, pos + S)
         if mode == "prefill" and window and cache_len < S:
             # keep the last `cache_len` tokens in the ring
             kk, vv = k[:, -cache_len:], v[:, -cache_len:]
             idx = positions[0, -cache_len:] % cache_len
-        write_cache(ck, idx, kk)
-        write_cache(cv, idx, vv)
+            rows = rows[-cache_len:]
+        slots = [r % cache_len for r in rows]      # idx, on the host
+        write_cache(ck, idx, kk, slots)
+        write_cache(cv, idx, vv, slots)
         new_cache = {"k": ck, "v": cv, "pos": pos + S}
 
     if mode == "decode":
@@ -343,11 +384,14 @@ def _seq_offset(c, dim: int) -> int:
 
 
 def write_cache(c: torch.Tensor, idx: torch.Tensor,
-                new: torch.Tensor) -> None:
-    """c[:, idx] = new, in place, cast to c's dtype. On a DTensor cache
-    each rank writes its own shard: `new` is laid out as the cache
-    (redistributed), and a cache sharded over its sequence dim (the
-    serve rules' `cache_seq`) takes only the positions its block holds."""
+                new: torch.Tensor, slots: list) -> None:
+    """c[:, idx] = new, in place, cast to c's dtype; `slots` is idx's
+    values on the host. On a DTensor cache each rank writes its own
+    shard: `new` is laid out as the cache (redistributed), and a cache
+    sharded over its sequence dim (the serve rules' `cache_seq`) takes
+    only the positions its block holds, picked on the host (no device
+    sync, and no data-dependent shape for the dry-run's fake
+    tensors)."""
     new = new.to(c.dtype)
     if not is_dtensor(c):
         c.index_copy_(1, idx, new)
@@ -363,8 +407,11 @@ def write_cache(c: torch.Tensor, idx: torch.Tensor,
     rows = new.redistribute(mesh, [Replicate() if p.is_shard(1) else p
                                    for p in pl]).to_local()
     start = _seq_offset(c, 1)
-    mine = ((idx >= start) & (idx < start + local.shape[1])).nonzero()[:, 0]
-    local.index_copy_(1, idx[mine] - start, rows[:, mine])
+    mine = [j for j, s in enumerate(slots)
+            if start <= s < start + local.shape[1]]
+    if mine:
+        mine = torch.tensor(mine, device=idx.device)
+        local.index_copy_(1, idx[mine] - start, rows[:, mine])
 
 
 def init_attention_cache(cfg, batch: int, cache_len: int, window: int,

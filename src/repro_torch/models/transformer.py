@@ -115,13 +115,16 @@ def _write_back(stacked: PyTree, i: int, new: PyTree,
                 stacked[k] = v
         elif tensors:
             dst = stacked[k][i]
-            if _ptr(v) != _ptr(dst):               # written in place already
+            if _address(v) != _address(dst):       # written in place already
                 dst.copy_(v)
 
 
-def _ptr(x: torch.Tensor) -> int:
-    """The data pointer of x (of a DTensor: of this rank's shard)."""
-    return (x.to_local() if is_dtensor(x) else x).data_ptr()
+def _address(x: torch.Tensor) -> tuple[int, int]:
+    """Where x's data starts (of a DTensor: this rank's shard's): its
+    storage and offset, which a fake tensor (the dry-run's) has too
+    where it has no data pointer."""
+    x = x.to_local() if is_dtensor(x) else x
+    return id(x.untyped_storage()), x.storage_offset()
 
 
 def layer_init(gen, cfg: ArchConfig, block_kind: str, device,

@@ -146,8 +146,9 @@ def test_gradient_raises(monkeypatch):
     plain backward (held to the reference in
     tests/test_torch_flash_attention_bwd.py). Off the CPU, asking for a
     gradient at a head dim the backward library is not built for raises
-    in the wrapper before any forward runs; meta tensors and a stub
-    library stand in for the card, the stub built for head dim 64 only."""
+    in the forward's launch before the kernel runs; meta tensors and a
+    stub library stand in for the card, the stub built for head dim 64
+    only."""
     q = torch.zeros((1, 4, 2, 32), requires_grad=True)
     k = torch.zeros((1, 4, 1, 32))
     out = ops.flash_attention(q, k, k)
@@ -160,17 +161,24 @@ def test_gradient_raises(monkeypatch):
     stub = type("Lib", (), {"fa_bwd_supports_head_dim":
                             staticmethod(lambda hd: int(hd == 64))})
     monkeypatch.setattr(ops, "_bwd_lib", lambda: stub)
+    # the forward's launch with the log-sum-exp (what the autograd
+    # Function calls on a card) checks the backward's head dim first
     for hd in (32, 256):
         qm = torch.zeros((1, 4, 2, hd), device="meta", requires_grad=True)
         km = torch.zeros((1, 4, 1, hd), device="meta")
         with pytest.raises(ValueError, match=f"head_dim {hd}"):
-            ops.flash_attention(qm, km, km)
+            ops._forward_cuda(qm, km, km, True, 0, None, None, True)
     # a supported head dim passes the check and reaches the forward,
     # which launches its kernel or raises: it never falls back
     qm = torch.zeros((1, 4, 2, 64), device="meta", requires_grad=True)
     km = torch.zeros((1, 4, 1, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
-        ops.flash_attention(qm, km, km)
+        ops._forward_cuda(qm, km, km, True, 0, None, None, True)
+    # meta tensors through the wrapper get the operators' shape rules
+    out = ops.flash_attention(qm, km, km)
+    assert out.device.type == "meta" and out.shape == qm.shape
+    (gm,) = torch.autograd.grad(out.sum(), qm)
+    assert gm.shape == qm.shape
 
 
 # -- the tensor-core kernel's arithmetic, emulated in plain PyTorch ------

@@ -127,13 +127,17 @@ def test_unsupported_backward_head_dim_raises(monkeypatch):
     stub = type("Lib", (), {"fa_bwd_supports_head_dim":
                             staticmethod(lambda hd: int(hd == 64))})
     monkeypatch.setattr(ops, "_bwd_lib", lambda: stub)
+    masks = (True, 0, None, None)
     ops.require_bwd_head_dim(64)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.flash_attention_bwd(*args(64))
+        ops._bwd_cuda(*args(64), *masks)
     monkeypatch.setattr(ops, "_require_cuda", lambda q, what: None)
     for hd in (128, 256):
         with pytest.raises(ValueError, match=f"head_dim {hd}"):
-            ops.flash_attention_bwd(*args(hd))
+            ops._bwd_cuda(*args(hd), *masks)
+    # through the wrapper, meta tensors get the operator's shape rule
+    assert [g.shape for g in ops.flash_attention_bwd(*args(128))] == [
+        (1, 4, 2, 128)] * 3
 
 
 def test_bf16_backward_routes_to_the_tensor_cores(monkeypatch):
@@ -142,7 +146,7 @@ def test_bf16_backward_routes_to_the_tensor_cores(monkeypatch):
     `flash_attention_bwd`; f32 and bf16 at hd <= 32 launch the CUDA-core
     ones (`flash_attention_bwd_f32`). Meta tensors and a stub library,
     which answers as csrc/flash_attention_bwd.cu's entry points do, stand
-    in for the card."""
+    in for the card, through the operator's CUDA implementation."""
     calls = []
 
     def entry(name):
@@ -177,7 +181,7 @@ def test_bf16_backward_routes_to_the_tensor_cores(monkeypatch):
         lse = torch.empty((1, 2, 4), device="meta")
         calls.clear()
         runtime.reset_counts()
-        grads = ops.flash_attention_bwd(q, k, v, out, do, lse)
+        grads = ops._bwd_cuda(q, k, v, out, do, lse, True, 0, None, None)
         assert calls == [(want, hd)]
         assert runtime.counts() == {"flash_attention_bwd" if want == "tc"
                                     else "flash_attention_bwd_f32": 1}

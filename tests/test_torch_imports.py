@@ -1,8 +1,8 @@
 """The port stands alone: no module of repro_torch (its figure drivers
 and examples included), and not chip_smoke.py, flash_probe.py,
-determinism_probe.py or mesh_probe.py, imports jax, the JAX package or the root
-`benchmarks` drivers; its entry points never fall back to the CPU on
-their own."""
+determinism_probe.py, mesh_probe.py or host_cost_probe.py, imports jax,
+the JAX package or the root `benchmarks` drivers; its entry points never
+fall back to the CPU on their own."""
 import ast
 from pathlib import Path
 
@@ -12,7 +12,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "flash_probe.py",
-    ROOT / "determinism_probe.py", ROOT / "mesh_probe.py"]
+    ROOT / "determinism_probe.py", ROOT / "mesh_probe.py",
+    ROOT / "host_cost_probe.py"]
 # the figure drivers and examples: each must be among PORT_FILES
 DRIVERS = ("figures/common.py", "figures/fig3_accuracy.py",
            "figures/fig1_metric.py", "figures/comm_efficiency.py",
@@ -24,6 +25,11 @@ DRIVERS = ("figures/common.py", "figures/fig3_accuracy.py",
 MESH_MODULES = ("sharding/__init__.py", "sharding/rules.py",
                 "sharding/param_specs.py", "sharding/boundary.py",
                 "launch/mesh.py", "launch/steps.py", "models/moe_ep.py")
+
+
+# the dry-run and its cost model: each must be among PORT_FILES
+DRYRUN_MODULES = ("launch/dryrun.py", "launch/op_costmodel.py",
+                  "launch/op_analysis.py", "launch/profile.py")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -56,6 +62,11 @@ def test_mesh_modules_are_checked():
     bad = _imported_roots(ROOT / "tests" / "torch_mesh_worker.py") & {
         "jax", "jaxlib", "repro"}
     assert not bad, f"the mesh tests' ranks import {sorted(bad)}"
+
+
+def test_dryrun_modules_are_checked():
+    port = ROOT / "src" / "repro_torch"
+    assert {port / d for d in DRYRUN_MODULES} <= set(PORT_FILES)
 
 
 def test_production_mesh_needs_its_process_group():

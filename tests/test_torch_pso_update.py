@@ -176,6 +176,12 @@ def test_cpu_wrapper_takes_plain_path_and_counts_nothing():
     assert tuple(gw.shape) == shape
     assert torch.equal(gw.reshape(W, -1), pw)
     assert torch.equal(gv.reshape(W, -1), pv)
+    # meta tensors get the operator's shape rule and launch nothing; the
+    # kernel's launch itself takes CUDA tensors only
+    meta = (co.to("meta"), *(x.to("meta") for x in t[:3]),
+            torch.from_numpy(wg).to("meta"), t[3].to("meta"))
+    mw, mv = ops.pso_update(*meta)
+    assert mw.device.type == "meta" and mw.shape == meta[1].shape
+    assert mv.shape == meta[2].shape and runtime.counts() == {}
     with pytest.raises(ValueError, match="no kernel"):
-        ops.pso_update(co.to("meta"), *(x.to("meta") for x in t[:3]),
-                       torch.from_numpy(wg).to("meta"), t[3].to("meta"))
+        ops._pso_cuda(*meta)

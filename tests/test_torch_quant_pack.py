@@ -122,9 +122,15 @@ def test_ops_padding_on_leaf_shapes(bits, shape):
 
 
 def test_wrapper_rejects_other_devices():
+    """Meta tensors get the operator's shape rule (no launch); the
+    kernel's launch itself takes CUDA tensors only."""
     x = torch.zeros((1, 256, 128), device="meta")
+    seeds = torch.zeros(1, dtype=torch.int32, device="meta")
+    packed, scales = ops.quant_pack_2d(x, seeds, bits=4)
+    assert packed.shape == (1, 128, 128) and packed.dtype == torch.uint8
+    assert scales.shape == (1, 1) and scales.device.type == "meta"
     with pytest.raises(ValueError):
-        ops.quant_pack_2d(x, torch.zeros(1, dtype=torch.int32, device="meta"))
+        ops._launch_quant_pack(x, None, seeds, 8, "quant_pack")
 
 
 # -- the quantize-pack launch plan (kernels/quant_pack/ops.py `_plan`: a

@@ -510,5 +510,117 @@ def boundary_case(mesh, z: dict, device="cpu") -> dict:
     return out
 
 
+DRYRUN = (("smollm-360m", "train"), ("smollm-360m", "prefill"))
+
+
+def _counts(summary: dict) -> dict:
+    """The numbers a dry-run is held to, flat: FLOPs, HBM bytes, the
+    collectives' bytes and counts by kind, the live bytes' peak."""
+    out = {"flops": summary["flops"], "hbm_bytes": summary["hbm_bytes"],
+           "peak_bytes": summary["memory"]["peak_bytes"],
+           "argument_bytes": summary["memory"]["argument_bytes"]}
+    for k, v in summary["collectives"]["by_kind_bytes"].items():
+        out[f"{k} bytes"] = v
+    for k, v in summary["collectives"]["by_kind_count"].items():
+        out[f"{k} count"] = v
+    return out
+
+
+def _own(tree):
+    """`tree` with each DTensor shard in storage of its own (a shard
+    `steps.place` cut from a whole tensor is a view that keeps the whole
+    alive), as each rank of a run holds it; leaves that are one object
+    stay one."""
+    from repro_torch.pytree import tree_map
+    from repro_torch.sharding.rules import is_dtensor
+    memo = {}
+
+    def one(x):
+        if not is_dtensor(x) or id(x) in memo:
+            return memo.get(id(x), x)
+        loc = x.to_local()
+        if loc.untyped_storage().nbytes() > loc.numel() * loc.element_size():
+            from torch.distributed.tensor import DTensor
+            memo[id(x)] = DTensor.from_local(loc.clone(), x.device_mesh,
+                                             x.placements, run_check=False)
+        else:
+            memo[id(x)] = x
+        return memo[id(x)]
+
+    return tree_map(one, tree)
+
+
+def _gen(device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(0)
+
+
+def _as_specs(batch: dict, specs: dict) -> dict:
+    """A batch's tensors in the dtypes of the step's input specs (int32
+    tokens and labels)."""
+    return {k: v.to(specs[k].dtype) for k, v in batch.items()}
+
+
+def dryrun_real(arch: str, kind: str, mesh, device="cpu") -> dict:
+    """This rank's cost-model counts (`launch.op_costmodel`) of one
+    `build_step` train round or prefill of reduced f32 `arch` on `mesh`,
+    run on real tensors placed as the step's layouts say."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import swarm_dist
+    from repro_torch.launch import dryrun, op_costmodel, steps
+    shape = (InputShape("train", *TRAIN, "train") if kind == "train"
+             else InputShape("prefill", *PREFILL, "prefill"))
+    built = steps.build_step(_f32(arch), shape, mesh)
+    lay = built.layouts
+    own = lambda tree, lays: _own(steps.place(tree, lays, mesh))
+    if kind == "train":
+        dcfg = built.meta["dcfg"]
+        cfg, model, params, (batch, ev, gen) = _inputs(arch, kind,
+                                                       dcfg.num_spatial)
+        draws = swarm_dist.sample_draws(gen, dcfg, params, "cpu", 0)
+        batch, ev = (_as_specs(b, m) for b, m in ((batch, built.args[1]),
+                                                  (ev, built.args[2])))
+        batch, ev, draws = _to((batch, ev, draws), device)
+        # the production placement: each rank draws its own shards
+        glob = steps.init_placed(model, _gen(device), lay[0].global_params,
+                                 mesh, device)
+        state = _own(steps.init_state_placed(glob, dcfg, lay[0], mesh))
+        args = (state, own(batch, lay[1]), own(ev, lay[2]), draws)
+    else:
+        cfg, model, params, (batch, cache) = _inputs(arch, kind)
+        # the step's batch spec carries labels too (unread by a prefill)
+        batch = _as_specs(dict(batch, labels=torch.roll(
+            batch["tokens"], -1, -1)), built.args[1])
+        batch, cache = _to((batch, cache), device)
+        args = (steps.init_placed(model, _gen(device), lay[0], mesh, device),
+                own(batch, lay[1]), own(cache, lay[2]))
+    out, cm = op_costmodel.count_step(built.fn, args,
+                                      parts=dryrun.arg_parts(built, args))
+    return _counts(cm.summary(out))
+
+
+def dryrun_fake(arch: str, kind: str, mesh_shape: tuple, rank: int) -> dict:
+    """The same counts from the dry-run: rank `rank` of a fake process
+    group of prod(mesh_shape) ranks, fake tensors. Initialises and
+    destroys its own fake group (none may be live)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import dryrun, steps
+    shape = (InputShape("train", *TRAIN, "train") if kind == "train"
+             else InputShape("prefill", *PREFILL, "prefill"))
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=int(np.prod(mesh_shape)))
+    try:
+        mesh = init_device_mesh("cpu", mesh_shape,
+                                mesh_dim_names=("data", "model"))
+        built = steps.build_step(_f32(arch), shape, mesh)
+        summary, _, _ = dryrun.dry_run(built, mesh, "cpu")
+        return _counts(summary)
+    finally:
+        dist.destroy_process_group()
+        dryrun.forget_meshes()
+
+
 CASES = {"moe_ep": moe_ep_case, "mesh_steps": mesh_steps_case,
          "boundary": boundary_case}
