@@ -3802,6 +3802,23 @@ def ep_layer_check(dev, card: str) -> None:
 DRYRUN_CELLS = (("smollm-360m", "train_4k", "single"),
                 ("qwen3-moe-30b-a3b", "train_4k", "single"),
                 ("recurrentgemma-9b", "decode_32k", "multi"))
+# the same dry-runs' records with the table gathered for the lookup and
+# the dense dispatch replicated, the layouts the port had before the
+# vocab-parallel lookup and the expert-sharded dispatch (NVIDIA H100 80GB
+# HBM3): per-rank peak, HBM and collective bytes
+DRYRUN_GATHERED = {
+    ("smollm-360m", "train_4k", "single"):
+        (26611887972, 2192002315329, 17023438112),
+    ("qwen3-moe-30b-a3b", "train_4k", "single"):
+        (97416703108, 24489078097541, 860775855936),
+    ("recurrentgemma-9b", "decode_32k", "multi"):
+        (4081676304, 5850100624, 134533120)}
+# the dense dispatch's expert products a rank in that Qwen3 record, all
+# 128 experts at every f column on each of the 256 ranks
+MOE_BMM_FLOPS_REPLICATED = 148485609357312
+RG_DECODE_PEAK_MAX = 2.2e9      # the table's 2.10 GB temporary gone
+LOOKUP_FNS = ("embed", "_vocab_parallel", "vocab_shard_lookup",
+              "vocab_shard_grad")
 DRYRUN_TAG = "__chip_smoke"
 DRYRUN_TIMEOUT_S = 420          # each production-mesh dry-run
 PEAK_TOL = 0.10                 # predicted against the allocator's peak
@@ -4050,6 +4067,7 @@ def dryrun_records(runs, card: str) -> None:
         peak, roof = rec["memory"]["peak_bytes"], rec["roofline"]
         coll = {k: v for k, v in rec["collectives"]["by_kind_bytes"].items()
                 if v}
+        layout_rows(cell, rec, card)
         print(f"[dryrun] {' x '.join(cell)} ({rec['devices']} ranks, fake "
               f"tensors on {rec['fake_device']}, traced in "
               f"{rec['trace_s']} s): per-rank peak {peak / gib:.2f} GiB of "
@@ -4062,6 +4080,193 @@ def dryrun_records(runs, card: str) -> None:
               f"{roof['compute_s']:.4g}, memory {roof['memory_s']:.4g}, "
               f"collective {roof['collective_s']:.4g}); useful FLOPs "
               f"{roof['useful_flops_ratio']:.3f} ({card})", flush=True)
+
+
+def layout_rows(cell: tuple, rec: dict, card: str) -> None:
+    """A production dry-run's record against the gathered layouts'
+    (`DRYRUN_GATHERED`): the per-rank peak, HBM and collective bytes,
+    each beside those; its op table holds no all-gather from the lookup
+    and no replicated dispatch, and the dense dispatch's expert products
+    are at most 1/16 of the replicated dispatch's (16 expert shards);
+    RecurrentGemma-9B's decode peaks under RG_DECODE_PEAK_MAX."""
+    import gzip
+    with gzip.open(ROOT / rec["ops_path"], "rt") as f:
+        rows = json.load(f)
+    name = " x ".join(cell)
+    gathers = [r for r in rows if r["fn"] in {f"models/layers.py:{f}"
+                                              for f in LOOKUP_FNS}
+               and "all_gather" in r["op"]]
+    check(not gathers, f"phase 40: {name} gathers the table: {gathers}")
+    check(not [r for r in rows if r["fn"] == "models/moe.py:_replicated"],
+          f"phase 40: {name} runs the replicated dispatch")
+    bmm = sum(r["flops"] for r in rows
+              if r["fn"] == "models/moe.py:expert_ffn")
+    lookup = sum(r["coll_bytes"] for r in rows
+                 if r["fn"] == "models/layers.py:_vocab_parallel")
+    peak, hbm = rec["memory"]["peak_bytes"], rec["hbm_bytes_per_device"]
+    coll = rec["collectives"]["total_bytes"]
+    old = DRYRUN_GATHERED[cell]
+    print(f"[layout] {name}: per-rank peak {peak} B (gathered: {old[0]}), "
+          f"HBM {hbm} B (gathered: {old[1]}), collectives {coll} B "
+          f"(gathered: {old[2]}), of which the lookup's all-reduce {lookup} B; the "
+          f"dense dispatch's expert products {bmm} FLOPs a rank, "
+          f"{rec['flops_per_device']} FLOPs in all; memory term "
+          f"{rec['roofline']['memory_s']:.6g} s ({card})", flush=True)
+    if cell[0] == MOE_ARCH:
+        check(0 < bmm <= MOE_BMM_FLOPS_REPLICATED / 16,
+              f"phase 40: {name}'s dense expert products {bmm} FLOPs a "
+              f"rank, over 1/16 of the replicated dispatch's "
+              f"{MOE_BMM_FLOPS_REPLICATED}")
+    if cell[0] == RG_ARCH:
+        check(peak < RG_DECODE_PEAK_MAX,
+              f"phase 40: {name} peaks at {peak} B a rank")
+
+
+# this slice: the vocab-parallel lookup and the expert-sharded dense
+# dispatch over virtual shards on the card (phase 41): RecurrentGemma-9B's
+# table (256000 x 4096 bf16) over a 16-way model axis, at its decode_32k
+# tokens (128, 1) and its training batch (2, 2048; a quarter of the tokens
+# from the first and last 64 rows, so that rows repeat within one shard
+# and the gradient's order of accumulation shows); one Qwen3-MoE layer at
+# full width over 16 expert shards, with f whole and cut 16 ways (the
+# FSDP rules on the 16 x 16 mesh), at the config's capacity factor
+LOOKUP_SHARDS = 16
+DISPATCH_SHARDS, DISPATCH_B, DISPATCH_S = 16, 4, 4096
+DISPATCH_ULPS = 2.0     # phase 39's rule, at each row's largest |value|
+
+
+def _mesh_worker():
+    """tests/torch_mesh_worker.py (torch and the port only): the virtual
+    shards' functions that the CPU tests hold to the reference."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import torch_mesh_worker
+    return torch_mesh_worker
+
+
+def row_ulps(got, want) -> float:
+    """The largest |got - want| in bf16 ulps of each last-dim row's
+    largest |want| (phase 39's rule)."""
+    g, w = got.float(), want.float()
+    row = w.abs().amax(dim=-1, keepdim=True)
+    return float(((g - w).abs() / bf16_ulp(row)).max())
+
+
+def lookup_layout_check(dev, card: str) -> None:
+    """Phase 41, the lookup: `vocab_virtual` over LOOKUP_SHARDS shards
+    against F.embedding and its autograd on the whole table: output and
+    table gradient bitwise."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    mw = _mesh_worker()
+    cfg = get_arch(RG_ARCH)
+    V, D = cfg.vocab_size, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(41)
+    table = (0.01 * torch.randn((V, D), generator=gen, device=dev)).to(
+        torch.bfloat16)
+    dec = torch.randint(0, V, (128, 1), generator=gen, device=dev)
+    train = torch.randint(0, V, (RG_MESH_B, RG_MESH_S), generator=gen,
+                          device=dev)
+    flat = train.view(-1)
+    flat[0::8] = torch.randint(0, 64, flat[0::8].shape, generator=gen,
+                               device=dev)
+    flat[4::8] = torch.randint(V - 64, V, flat[4::8].shape, generator=gen,
+                               device=dev)
+    for label, tok in (("decode", dec), ("training", train)):
+        tok = tok.to(torch.int32)
+        g = torch.randn(tuple(tok.shape) + (D,), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        t = table.detach().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = F.embedding(tok, t)
+        (gw,) = torch.autograd.grad(want, [t], g)
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        out, gv = mw.vocab_virtual(table, tok, g, LOOKUP_SHARDS)
+        torch.cuda.synchronize()
+        virt_ms = (time.perf_counter() - t0) * 1e3
+        rows = int((gw != 0).any(dim=-1).sum())
+        same = {k: "bitwise" if torch.equal(a, b) else "DIFFERS"
+                for k, a, b in (("out", out, want), ("grad", gv, gw))}
+        print(f"[layout] {RG_ARCH}'s table ({V} x {D} bf16) over "
+              f"{LOOKUP_SHARDS} virtual vocab shards, {label} tokens "
+              f"{tuple(tok.shape)}: output {same['out']}, table gradient "
+              f"({rows} rows touched) {same['grad']}; eager "
+              f"{virt_ms:.1f} ms against the whole lookup's {whole_ms:.1f} "
+              f"({card})", flush=True)
+        check(torch.equal(out, want), f"phase 41: the {label} lookup over "
+                                      f"vocab shards differs")
+        check(torch.equal(gv, gw), f"phase 41: the {label} table gradient "
+                                   f"over vocab shards differs")
+        del t, want, gw, out, gv, g
+    del table
+    torch.cuda.empty_cache()
+
+
+def dispatch_layout_check(dev, card: str) -> None:
+    """Phase 41, the dispatch: `dispatch_virtual` over DISPATCH_SHARDS
+    expert shards, with f whole and cut DISPATCH_SHARDS ways, against the
+    whole `moe._dispatch` and its autograd: y and the expert weights'
+    gradients within DISPATCH_ULPS bf16 ulps of each row's largest |value|
+    (a row: a token's y, an expert's weight row), aux equal (the routing
+    is the same code on the same inputs). The tokens' gradient runs
+    through CUDA's atomic scatter-add in both and is printed."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rmsnorm
+    mw = _mesh_worker()
+    cfg = get_arch(MOE_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(411)
+    params = moe.moe_init(gen, cfg, dev)
+    x = torch.randn((DISPATCH_B, DISPATCH_S, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    r = torch.randn(x.shape, generator=gen, device=dev)
+    names = ("wi", "wu", "wo")
+
+    def run(fn):
+        p = {k: v.detach().requires_grad_(k in names)
+             for k, v in params.items() if k != "norm"}
+        h = rmsnorm(params["norm"], x, cfg.norm_eps).detach()
+        h.requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = fn(p, h)
+        grads = torch.autograd.grad((y.float() * r).sum() + aux,
+                                    [p[k] for k in names] + [h])
+        torch.cuda.synchronize()
+        return (y.detach(), float(aux.detach()), grads,
+                (time.perf_counter() - t0) * 1e3)
+
+    yw, auxw, gw, whole_ms = run(lambda p, h: moe._dispatch(p, h, cfg))
+    for n_mlp in (1, DISPATCH_SHARDS):
+        y, aux, g, ms = run(lambda p, h: mw.dispatch_virtual(
+            p, h, cfg, DISPATCH_SHARDS, n_mlp))
+        uy = row_ulps(y, yw)
+        ug = {k: row_ulps(a, b) for k, a, b in zip(names, g, gw)}
+        ux = row_ulps(g[-1], gw[-1])
+        print(f"[layout] one {MOE_ARCH} layer, tokens ({DISPATCH_B}, "
+              f"{DISPATCH_S}), cf {cfg.moe_capacity_factor}, "
+              f"{DISPATCH_SHARDS} virtual expert shards x {n_mlp} f "
+              f"shards: y {uy:.2f} bf16 ulps of the token's largest |y|, "
+              f"aux {aux} against {auxw}; gradients "
+              + ", ".join(f"{k} {u:.2f}" for k, u in ug.items())
+              + f" ulps of each row's largest, the tokens' {ux:.2f} "
+              f"(printed); eager {ms:.1f} ms against the whole "
+              f"dispatch's {whole_ms:.1f} ({card})", flush=True)
+        check(bool(torch.isfinite(y.float()).all()), "phase 41: y not finite")
+        check(uy <= DISPATCH_ULPS, f"phase 41: y {uy:.2f} bf16 ulps from "
+                                   f"the whole dispatch ({n_mlp} f shards)")
+        check(aux == auxw, f"phase 41: aux {aux} against {auxw}")
+        for k, u in ug.items():
+            check(u <= DISPATCH_ULPS, f"phase 41: the {k} gradient {u:.2f} "
+                                      f"bf16 ulps ({n_mlp} f shards)")
+        del y, g
+    del params, x, r, yw, gw
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -4237,6 +4442,12 @@ def main() -> None:
     print(f"[time] phase 40 (the dry-run: the kernels' shape rules, phase "
           f"37's step predicted and measured, three production-mesh "
           f"dry-runs, started before phase 37): "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    t0 = time.perf_counter()
+    lookup_layout_check(dev, card)
+    dispatch_layout_check(dev, card)
+    print(f"[time] phase 41 (the vocab-parallel lookup and the expert-"
+          f"sharded dispatch over virtual shards): "
           f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
 
     src = {"quant_pack_ef": ("quant_pack",

@@ -15,13 +15,20 @@ Each case prints its time, launches (rank 0) and largest difference;
 the exit code is 0 when every case is within TOL (the boundary's
 quantize-pack, scan and Eq. 8 bitwise, the init bitwise).
 
+The layout case, on the (2, 2) mesh: the vocab-parallel embedding
+lookup (its output and table gradient) and the expert-sharded dense MoE
+dispatch under the TP and FSDP rules
+(`torch_mesh_worker.layout_case`), each against the one-process port on
+the rank's device.
+
 The dryrun case, on the (2, 2) mesh: each rank's cost-model counts
 (`launch/op_costmodel.py`: FLOPs, HBM bytes, the arguments' bytes,
 collective bytes and counts by kind, the live bytes' peak) of a reduced
-smollm-360m train round and prefill on real tensors equal, number for
-number, those of the same rank in the fake (2, 2) dry-run (`launch/dryrun.py`'s analysis: fake
-tensors on a fake process group of 4 ranks, run in this process before
-the ranks start)."""
+smollm-360m train round and prefill and a reduced qwen3-moe-30b-a3b
+prefill (both layouts above) on real tensors equal, number for number,
+those of the same rank in the fake (2, 2) dry-run (`launch/dryrun.py`'s
+analysis: fake tensors on a fake process group of 4 ranks, run in this
+process before the ranks start)."""
 import argparse
 import datetime
 import sys
@@ -75,6 +82,47 @@ def dryrun_check(name: str, rank: int, mesh, dev, expected: dict) -> bool:
                   f"real {got} {'PASS' if not diff else f'FAIL {diff}'}",
                   flush=True)
         ok &= not diff
+    return ok
+
+
+def layout_check(name: str, rank: int, mesh, dev) -> bool:
+    """The vocab-parallel lookup (forward and table gradient) and the
+    expert-sharded dense dispatch (no EP; TP and FSDP rules) on this
+    mesh (`torch_mesh_worker.layout_case`), against the one-process
+    port on this rank's device: the lookup bitwise where the CPU tests
+    hold it bitwise (`layout_exact`: gathers and F.embedding's own
+    backward, deterministic on a card too); every other result, and on
+    a card the dispatch (cuBLAS may pick another kernel for a batch of
+    fewer experts), within TOL x max(1, the largest |value|), printing
+    whether it was bitwise. Rank 0 prints and judges."""
+    import torch_mesh_worker as mw
+    z = mw.layout_inputs()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    got = mw.layout_case(mesh, z, device=dev)
+    sync()
+    dt = time.perf_counter() - t0
+    if rank != 0:
+        return True
+    ok = True
+    for region, label, rules in mw.LAYOUTS[name]:
+        key = f"{region}|{label}|"
+        want = mw.layout_one_process(z, region, device=dev)
+        worst, good = 0.0, True
+        for k, w in want.items():
+            d = float(np.abs(got[key + k].astype(np.float64) - w).max())
+            exact = mw.layout_exact(k, label, rules) and (
+                region == "lookup" or dev.type == "cpu")
+            good &= (d == 0.0 if exact
+                     else d <= TOL * max(1.0, float(np.abs(w).max())))
+            worst = max(worst, d)
+        print(f"[mesh] {name} {region} {label} ({rules}): {dt:.3f} s for "
+              f"all, max |sharded - one rank| {worst:.3e}"
+              f"{' (bitwise)' if worst == 0.0 else ''}, largest tensor "
+              f"on rank 0 {int(got[key + 'most'])} elements "
+              f"{'PASS' if good else 'FAIL'}", flush=True)
+        ok &= good
     return ok
 
 
@@ -170,6 +218,8 @@ def rank_main(rank: int, world: int, store: str, backend: str,
                       f"{abs(float(ep['aux']) - float(aux)):.3e} "
                       f"{'PASS' if d <= TOL else 'FAIL'}", flush=True)
                 ok &= d <= TOL
+        if mesh_shape == (2, 2):
+            ok &= layout_check(name, rank, mesh, dev)
         if expected:
             ok &= dryrun_check(name, rank, mesh, dev, expected)
         dist.barrier()

@@ -90,6 +90,7 @@ _NO_BYTES = {"detach", "alias", "lift_fresh", "_unsafe_view",
 _HERE = __file__
 _PORT = "repro_torch"
 _PROPAGATION = "_sharding_prop.py"
+_HELPERS = "sharding/collectives.py"
 
 
 def _issuer() -> Optional[str]:
@@ -97,13 +98,13 @@ def _issuer() -> Optional[str]:
     ("module/file.py:function"), "(autograd)" where none is (a backward
     run by autograd's engine); None inside DTensor's sharding
     propagation, whose calls on global-shape stand-ins are no rank's
-    work."""
+    work. A collective of `sharding/collectives.py` is its caller's."""
     f = sys._getframe(2)
     while f is not None:
         name = f.f_code.co_filename
         if name.endswith(_PROPAGATION):
             return None
-        if _PORT in name and name != _HERE:
+        if _PORT in name and name != _HERE and not name.endswith(_HELPERS):
             return (name.split(_PORT + "/", 1)[-1] + ":"
                     + f.f_code.co_name)
         f = f.f_back

@@ -154,16 +154,103 @@ def embedding_init(gen, vocab: int, d: int, dtype, device) -> PyTree:
 
 
 def embed(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of `tokens` (B, S) in the table (V, D). A table sharded
+    over the vocab is never gathered: each rank looks its tokens up in
+    its own rows and the rows are summed over the vocab's mesh dims
+    (`_vocab_parallel`), where the reference's `jnp.take` on the
+    ("vocab", "embed") table leaves the same masked lookup and sum to
+    XLA's partitioner."""
     tbl = shard(params["table"], ("vocab", "embed"))
-    if is_dtensor(tbl):
-        # the lookup reads the table gathered over the vocab: DTensor's
-        # vocab-parallel lookup (a masked partial sum) has no backward
-        # from a plain partial gradient, and cannot be resharded over a
-        # second mesh axis (its mask covers the unsharded tokens)
-        from torch.distributed.tensor import Replicate
-        tbl = tbl.redistribute(tbl.device_mesh, [
-            Replicate() if p.is_shard(0) else p for p in tbl.placements])
+    if is_dtensor(tbl) and any(p.is_shard(0) for p in tbl.placements):
+        return shard(_vocab_parallel(tbl, tokens), ("batch", "seq", "embed"))
     return shard(F.embedding(tokens, tbl), ("batch", "seq", "embed"))
+
+
+def vocab_shard_lookup(table: torch.Tensor, tokens: torch.Tensor, lo: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One vocab shard's part of a lookup: `table` holds rows [lo, lo +
+    rows) of the whole. Returns the rows of the tokens in the shard, zero
+    for the others (summed over the shards this is the lookup, bitwise:
+    one real row and zeros), and the index its gradient scatters by
+    (`vocab_shard_grad`): the token's local row, or `rows` for a token
+    outside the shard. Device-side masks only: no host read, so it runs
+    on fake tensors."""
+    rows = table.shape[0]
+    idx = tokens - lo
+    keep = (idx >= 0) & (idx < rows)
+    out = torch.where(keep[..., None],
+                      F.embedding(torch.where(keep, idx, 0), table), 0)
+    return out, torch.where(keep, idx, rows)
+
+
+def vocab_shard_grad(g: torch.Tensor, idx: torch.Tensor, rows: int
+                     ) -> torch.Tensor:
+    """The shard's table gradient from the output gradient g (..., D):
+    F.embedding's own backward over rows + 1, the extra row taking the
+    tokens outside the shard and then cut off. A row's contributions
+    come in the same order as in the whole table's backward, so the
+    result is bitwise its rows [lo, lo + rows)."""
+    return torch.ops.aten.embedding_dense_backward(
+        g, idx, rows + 1, -1, False)[:rows]
+
+
+class _VocabLookup(torch.autograd.Function):
+    """`vocab_shard_lookup` on one rank's vocab shard, whose backward
+    scatters the output's gradient into the shard's own rows."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, lo: int):
+        out, idx = vocab_shard_lookup(table, tokens, lo)
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return vocab_shard_grad(g.contiguous(), idx, ctx.rows), None, None
+
+
+def _vocab_parallel(tbl, tokens):
+    """The lookup on the table DTensor `tbl` sharded over the vocab (dim
+    0) on some mesh dims. The tokens are this rank's, as laid out
+    (replicated over the dims that shard the table); the output is a
+    DTensor laid out as the tokens, with the table's embed dim shards.
+    The table's gradient lands on its own shards: Shard over the dims
+    that shard it, a partial sum over the dims that split the tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.sharding import collectives
+    mesh = tbl.device_mesh
+    vocab = collectives.shard_dims(tbl.placements, 0)
+    cut = {m for m, p in enumerate(tbl.placements) if p.is_shard()}
+    if is_dtensor(tokens):
+        tokens = tokens.redistribute(mesh, [
+            Replicate() if m in cut else p
+            for m, p in enumerate(tokens.placements)])
+        tok_pl, tokens = tokens.placements, tokens.to_local()
+    else:
+        tok_pl = [Replicate()] * mesh.ndim
+    grad_pl = [p if p.is_shard() else
+               Partial() if tok_pl[m].is_shard() else Replicate()
+               for m, p in enumerate(tbl.placements)]
+    lo, _ = collectives.offset(tbl.shape[0], mesh, vocab)
+    out = _VocabLookup.apply(tbl.to_local(grad_placements=grad_pl), tokens,
+                             lo)
+    # summed over the vocab's dims; every rank there sees the same tokens,
+    # so the sum's gradient is the same on each: no communication back
+    out = collectives.gather_sum(out, mesh, (), vocab)
+    out_pl = [Shard(tokens.ndim) if p.is_shard(1) else tok_pl[m]
+              for m, p in enumerate(tbl.placements)]
+    # the whole output's shape, contiguous: from_local would scale the
+    # stride of a size-1 dim (decode's seq) with the batch's shards, and
+    # such strides send a later matmul to a batched product
+    shape = list(out.shape)
+    for m, p in enumerate(out_pl):
+        if p.is_shard():
+            shape[p.dim] *= mesh.size(m)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(out, mesh, out_pl, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
 
 
 def unembed(params: PyTree, x: torch.Tensor) -> torch.Tensor:

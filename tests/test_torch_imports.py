@@ -24,7 +24,8 @@ DRIVERS = ("figures/common.py", "figures/fig3_accuracy.py",
 # the sharded mesh path: each must be among PORT_FILES
 MESH_MODULES = ("sharding/__init__.py", "sharding/rules.py",
                 "sharding/param_specs.py", "sharding/boundary.py",
-                "launch/mesh.py", "launch/steps.py", "models/moe_ep.py")
+                "sharding/collectives.py", "launch/mesh.py",
+                "launch/steps.py", "models/moe_ep.py")
 
 
 # the dry-run and its cost model: each must be among PORT_FILES

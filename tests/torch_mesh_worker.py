@@ -150,6 +150,194 @@ def moe_ep_case(mesh, z: dict, device="cpu") -> dict:
     return out
 
 
+# the layouts `layout_case` runs on each mesh: (region, name, rules). The
+# lookup with the tokens split over "data" (the table's gradient a sum
+# over the data ranks; its embed dim FSDP-sharded too) and whole on
+# every rank; the dispatch under the TP rules (the experts over one axis,
+# each expert's products whole) and the FSDP rules (the experts over
+# "data", expert_mlp over "model": wo's product a partial sum)
+LAYOUTS = {
+    "2x2": (("lookup", "split", dict(vocab="model", batch="data",
+                                     embed_fsdp="data")),
+            ("lookup", "whole", dict(vocab="model")),
+            ("dispatch", "tp", dict(batch="data", expert="model")),
+            ("dispatch", "fsdp", dict(batch="data", embed_fsdp="data",
+                                      expert="data", expert_mlp="model"))),
+    "4x1": (("lookup", "whole", dict(vocab="data")),
+            ("dispatch", "tp", dict(expert="data"))),
+}
+
+
+LOOKUP_V, LOOKUP_D, LAYOUT_B, LAYOUT_S = 64, 8, 4, 6
+
+
+def layout_inputs(seed: int = 26) -> dict:
+    """`layout_case`'s inputs as numpy arrays, from one seed: a (V, D)
+    table, (B, S) tokens (with repeats: B S = 24 draws of 64 rows) and
+    the lookup's output weights; a (B, S, d_model) batch, its output
+    weights and `moe_cfg`'s MoE weights from the port's init."""
+    from repro_torch.models import moe
+    rng = np.random.default_rng(seed)
+    cfg = moe_cfg()
+    p = moe.moe_init(torch.Generator().manual_seed(seed), cfg, "cpu")
+    B, S, D = LAYOUT_B, LAYOUT_S, cfg.d_model
+    return {
+        "table": (0.01 * rng.standard_normal((LOOKUP_V, LOOKUP_D))
+                  ).astype(np.float32),
+        "tokens": rng.integers(0, LOOKUP_V, (B, S)).astype(np.int32),
+        "r_emb": rng.standard_normal((B, S, LOOKUP_D)).astype(np.float32),
+        "x": (0.1 * rng.standard_normal((B, S, D))).astype(np.float32),
+        "r": rng.standard_normal((B, S, D)).astype(np.float32),
+        "p_norm": p["norm"]["scale"].numpy(),
+        **{f"p_{k}": p[k].numpy() for k in ("router", "wi", "wu", "wo")}}
+
+
+def _put(x: torch.Tensor, names: tuple, rules, mesh):
+    """x (the same on every rank) as a DTensor laid out as `rules` give
+    `names`, wanting a gradient when it is a float."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.sharding.rules import fit, placements
+    pl = placements(fit(rules.spec(names), x.shape, mesh), mesh)
+    d = distribute_tensor(x, mesh, pl, src_data_rank=None)
+    return d.requires_grad_() if x.is_floating_point() else d
+
+
+def layout_case(mesh, z: dict, device="cpu") -> dict:
+    """`layers.embed` (the vocab-parallel lookup) and `moe.moe_apply`
+    (the expert-sharded dense dispatch: no EP) on DTensors laid out by
+    each of LAYOUTS' rules for this mesh: the lookup's output and the
+    gradient of sum(out r) to the table, the dispatch's y, aux and the
+    gradients of sum(y r) + aux, each whole; and the most elements of
+    an expert weight or gradient, and of the table, that the rank held
+    (`_Largest`)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import layers, moe
+    from repro_torch.sharding.rules import ShardingRules, use_rules
+    name = "x".join(map(str, mesh.shape))
+    t = {k: torch.from_numpy(v).to(device) for k, v in z.items()}
+    cfg = moe_cfg()
+    out = {}
+    for region, label, r in LAYOUTS[name]:
+        rules = ShardingRules(r)
+        key = f"{region}|{label}|"
+        seen = _Largest()
+        with use_rules(rules, mesh), implicit_replication():
+            if region == "lookup":
+                tbl = _put(t["table"], ("vocab", "embed_fsdp"), rules, mesh)
+                tok = _put(t["tokens"], ("batch", None), rules, mesh)
+                rr = _put(t["r_emb"], ("batch", "seq", "embed"), rules, mesh)
+                with seen:
+                    o = layers.embed({"table": tbl}, tok)
+                    (g,) = torch.autograd.grad((o * rr).sum(), [tbl])
+                dense = torch.empty(o.shape, device="meta").stride()
+                out.update({key + "out": full(o), key + "g_table": full(g),
+                            key + "contiguous": np.array(o.stride() == dense)})
+            else:
+                p = {k: _put(t["p_" + k], names, rules, mesh) for k, names in (
+                    ("router", ("embed_fsdp", None)),
+                    ("wi", ("expert", "embed_fsdp", "expert_mlp")),
+                    ("wu", ("expert", "embed_fsdp", "expert_mlp")),
+                    ("wo", ("expert", "expert_mlp", "embed_fsdp")))}
+                p["norm"] = {"scale": _put(t["p_norm"], (None,), rules,
+                                           mesh)}
+                x = _put(t["x"], ("batch", "seq", "embed"), rules, mesh)
+                rr = _put(t["r"], ("batch", "seq", "embed"), rules, mesh)
+                leaves = [x, p["router"], p["wi"], p["wu"], p["wo"],
+                          p["norm"]["scale"]]
+                with seen:
+                    y, aux = moe.moe_apply(p, x, cfg)
+                    grads = torch.autograd.grad((y * rr).sum() + aux, leaves)
+                out.update({key + "y": full(y), key + "aux": full(aux)})
+                out.update({key + f"g_{k}": full(g) for k, g in zip(
+                    ("x", "router", "wi", "wu", "wo", "norm"), grads)})
+        out[key + "most"] = np.array(seen.most)
+    if name == "2x2" and "dryrun" in z:   # both layouts, cost model, real
+        out.update({f"dryrun|{k}": np.array(v) for k, v in dryrun_real(
+            *DRYRUN_LAYOUT, mesh, device=device).items()})
+    return out
+
+
+def layout_one_process(z: dict, region: str, device="cpu") -> dict:
+    """`layout_case`'s results with no mesh: the port's one-process
+    lookup or dispatch on the same inputs."""
+    from repro_torch.models import layers, moe
+    t = {k: torch.from_numpy(v).to(device) for k, v in z.items()
+         if v.dtype != np.bool_}
+    if region == "lookup":
+        tbl = t["table"].clone().requires_grad_()
+        out = layers.embed({"table": tbl}, t["tokens"])
+        (g,) = torch.autograd.grad((out * t["r_emb"]).sum(), [tbl])
+        return {"out": full(out), "g_table": full(g)}
+    leaves = [t[k].clone().requires_grad_() for k in
+              ("x", "p_router", "p_wi", "p_wu", "p_wo", "p_norm")]
+    p = dict(zip(("router", "wi", "wu", "wo"), leaves[1:5]),
+             norm={"scale": leaves[5]})
+    y, aux = moe.moe_apply(p, leaves[0], moe_cfg())
+    g = torch.autograd.grad((y * t["r"]).sum() + aux, leaves)
+    out = {"y": full(y), "aux": full(aux)}
+    out.update({f"g_{k}": full(x) for k, x in zip(
+        ("x", "router", "wi", "wu", "wo", "norm"), g)})
+    return out
+
+
+def layout_exact(key: str, label: str, rules: dict) -> bool:
+    """Whether `layout_case`'s result `key` of layout `label` is held
+    bitwise to one process: all but the FSDP dispatch (wo's partial sums
+    over "model") and the sums over rows that the rules' batch layout
+    splits (the norm scale's and the table's gradients)."""
+    split = key in ("g_norm", "g_table") and "batch" in rules
+    return label != "fsdp" and not split
+
+
+def vocab_virtual(table: torch.Tensor, tokens: torch.Tensor,
+                  g: torch.Tensor, n: int) -> tuple:
+    """The vocab-parallel lookup over n virtual vocab shards in one
+    process: each shard's masked lookup (`layers.vocab_shard_lookup`),
+    summed in shard order as the all-reduce sums them, and each shard's
+    table gradient from the output gradient g (`vocab_shard_grad`),
+    concatenated. Returns (output, table gradient)."""
+    from repro_torch.models import layers
+    rows = table.shape[0] // n
+    out, grads = None, []
+    for s in range(n):
+        part, idx = layers.vocab_shard_lookup(
+            table[s * rows:(s + 1) * rows], tokens, s * rows)
+        out = part if out is None else out + part
+        grads.append(layers.vocab_shard_grad(g, idx, rows))
+    return out, torch.cat(grads)
+
+
+def dispatch_virtual(params: dict, h: torch.Tensor, cfg, n_expert: int,
+                     n_mlp: int) -> tuple:
+    """The expert-sharded dense dispatch (`moe._expert_sharded`) over
+    n_expert x n_mlp virtual shards in one process: routing and pack
+    whole, each shard's products on its experts' rows and its f columns
+    of the weights, the f parts summed in f32 in shard order (as the
+    all-reduce sums them) and the expert blocks concatenated, then the
+    combine. h is pre-normed (B, S, D).
+    Returns (y, aux)."""
+    from repro_torch.models import moe
+    B, S, D = h.shape
+    hf = h.reshape(B * S, D)
+    gates, idx, counts, aux = moe.route(hf, params["router"], cfg)
+    xs, dest, sort_idx = moe.pack(hf, idx, counts, cfg)
+    El = cfg.num_experts // n_expert
+    fl = params["wi"].shape[-1] // n_mlp
+    blocks = []
+    for e in range(n_expert):
+        es = slice(e * El, (e + 1) * El)
+        ys = None
+        for c in range(n_mlp):
+            cs = slice(c * fl, (c + 1) * fl)
+            part = moe.expert_ffn(xs[es], params["wi"][es, :, cs],
+                                  params["wu"][es, :, cs],
+                                  params["wo"][es, cs], partial=n_mlp > 1)
+            ys = part if ys is None else ys + part
+        blocks.append(ys.to(h.dtype))
+    y = moe.combine(torch.cat(blocks), dest, sort_idx, gates, h.dtype)
+    return y.reshape(B, S, D), aux
+
+
 def _f32(arch):
     from repro_torch.configs.base import get_arch
     cfg = dataclasses.replace(get_arch(arch).reduced(), dtype="float32")
@@ -510,7 +698,12 @@ def boundary_case(mesh, z: dict, device="cpu") -> dict:
     return out
 
 
-DRYRUN = (("smollm-360m", "train"), ("smollm-360m", "prefill"))
+# a Qwen3-MoE prefill on a (2, 2) mesh under the serve rules: the table
+# over "model" (the vocab-parallel lookup) and the 8 experts over "model"
+# with no EP (the expert-sharded dispatch)
+DRYRUN_LAYOUT = ("qwen3-moe-30b-a3b", "prefill")
+DRYRUN = (("smollm-360m", "train"), ("smollm-360m", "prefill"),
+          DRYRUN_LAYOUT)
 
 
 def _counts(summary: dict) -> dict:
@@ -623,4 +816,4 @@ def dryrun_fake(arch: str, kind: str, mesh_shape: tuple, rank: int) -> dict:
 
 
 CASES = {"moe_ep": moe_ep_case, "mesh_steps": mesh_steps_case,
-         "boundary": boundary_case}
+         "boundary": boundary_case, "layout": layout_case}
