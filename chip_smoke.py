@@ -448,6 +448,20 @@ def dev_us(e):
         e, "self_cuda_time_total", 0.0)
 
 
+def device_rows(prof) -> list:
+    """A profile's device-side rows (kernels, copies, fills), largest own
+    device time first. The host ops' rows repeat the device time of the
+    kernels they launched, and every `record_function` range (the
+    program's spans) also appears on the device timeline as an
+    annotation spanning its kernels: the rows of every range the profile
+    holds are left out, so no device time counts twice."""
+    avg = prof.key_averages()
+    spans = {e.key for e in avg if getattr(e, "is_user_annotation", False)}
+    return sorted((e for e in avg
+                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
+                   and e.key not in spans), key=dev_us, reverse=True)
+
+
 def ulp(x):
     import torch
     a = x.abs()
@@ -730,13 +744,7 @@ def profile_round(spec) -> None:
 
     names = ("LocalUpdate", "ScoreSelect", "Uplink", "Aggregate",
              "Downlink", "BestTracking")
-    # device-side rows only (kernels, copies): the host ops' rows repeat
-    # the device time of the kernels they launched, and the stage ranges
-    # also appear on the device timeline as annotations spanning them
-    rows = sorted((e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
-                   and e.key not in names),
-                  key=dev_us, reverse=True)
+    rows = device_rows(prof)
     busy_ms = sum(dev_us(e) for e in rows) / 1e3
     ours = sum(dev_us(e) for e in rows
                if e.key.startswith(("void (anonymous namespace)::quant_pack",
@@ -1647,9 +1655,7 @@ def profile_mesh(spec) -> None:
 
     names = ("LocalUpdate", "ScoreSelect", "Uplink", "Aggregate",
              "Downlink", "BestTracking")
-    rows = sorted((e for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
-                   and e.key not in names), key=dev_us, reverse=True)
+    rows = device_rows(prof)
 
     def ms_of(*words):
         return sum(dev_us(e) for e in rows

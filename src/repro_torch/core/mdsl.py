@@ -198,21 +198,11 @@ def _pso_every_step(workers: WorkerState, gbest_params: PyTree,
     return workers
 
 
-def local_update(workers: WorkerState, gbest_params: PyTree,
-                 data_x: torch.Tensor, data_y: torch.Tensor,
-                 loss_fn: LossFn, coeffs: pso.PsoCoefficients, lr: float,
-                 cfg: MdslConfig, perms: torch.Tensor) -> WorkerState:
-    """Round-level Eq. 8: E SGD epochs, then the PSO displacement once
-    (fedavg keeps the SGD result); per-step Eq. 8 under
-    `cfg.pso_every_step`."""
-    if per_step_pso(cfg):
-        return _pso_every_step(workers, gbest_params, data_x, data_y,
-                               loss_fn, coeffs, lr, cfg, perms[:, 0])
+def _displace(workers: WorkerState, trained: PyTree, gbest_params: PyTree,
+              coeffs: pso.PsoCoefficients, cfg: MdslConfig) -> WorkerState:
+    """Round-level Eq. 8 from the SGD result `trained`."""
     w0 = workers.params
-    trained = _local_sgd_epochs(w0, data_x, data_y, loss_fn, lr, cfg, perms)
     sgd_delta = tree_map(lambda a, b: a - b, trained, w0)
-    if cfg.algorithm == "fedavg":
-        return workers._replace(params=trained, velocity=sgd_delta)
     clip = cfg.hp.velocity_clip
     v_next = tree_map(
         lambda w, v, wl, wg, d: pso.velocity_update(w, v, wl, wg, d, coeffs,
@@ -222,13 +212,49 @@ def local_update(workers: WorkerState, gbest_params: PyTree,
                             velocity=v_next)
 
 
+def local_update(workers: WorkerState, gbest_params: PyTree,
+                 data_x: torch.Tensor, data_y: torch.Tensor,
+                 loss_fn: LossFn, coeffs: pso.PsoCoefficients, lr: float,
+                 cfg: MdslConfig, perms: torch.Tensor,
+                 byz_noise: Optional[list] = None) -> WorkerState:
+    """Round-level Eq. 8: E SGD epochs, then the PSO displacement once
+    (fedavg keeps the SGD result); per-step Eq. 8 under
+    `cfg.pso_every_step`. The Byzantine workers' updates are then
+    corrupted (`comm.channel.corrupt_local_updates`): inside the
+    `LocalUpdate.eq8` span where the round-level Eq. 8 runs, in
+    LocalUpdate's own time otherwise."""
+    w0 = workers.params
+
+    def corrupted(w: WorkerState) -> WorkerState:
+        return w._replace(params=comm_channel.corrupt_local_updates(
+            cfg.comm, w0, w.params, byz_noise))
+
+    with rounds.stage_span("LocalUpdate.train"):
+        if per_step_pso(cfg):           # Eq. 8 runs inside the steps
+            workers = _pso_every_step(workers, gbest_params, data_x, data_y,
+                                      loss_fn, coeffs, lr, cfg, perms[:, 0])
+        else:
+            trained = _local_sgd_epochs(w0, data_x, data_y, loss_fn, lr,
+                                        cfg, perms)
+    if per_step_pso(cfg):
+        return corrupted(workers)
+    if cfg.algorithm == "fedavg":
+        return corrupted(workers._replace(
+            params=trained,
+            velocity=tree_map(lambda a, b: a - b, trained, w0)))
+    with rounds.stage_span("LocalUpdate.eq8"):
+        return corrupted(_displace(workers, trained, gbest_params, coeffs,
+                                   cfg))
+
+
 def mdsl_round(state: SwarmTrainState, data_x: torch.Tensor,
                data_y: torch.Tensor, eval_x: torch.Tensor,
                eval_y: torch.Tensor, draws: RoundDraws, *, loss_fn: LossFn,
                eval_fn: LossFn, cfg: MdslConfig, n_params: int
                ) -> tuple[SwarmTrainState, RoundTelemetry]:
     """One communication round (Algorithm 1 body). data_x/data_y: the
-    stacked local datasets (C, n, ...); eval_x/eval_y: D_g."""
+    stacked local datasets (C, n, ...); eval_x/eval_y: D_g. Every
+    operation runs inside a stage span (obs/trace.py names the tree)."""
     C = data_x.shape[0]
     pipe = rounds.RoundPipeline(algorithm=cfg.algorithm, comm=cfg.comm,
                                 num_workers=C, tau=cfg.tau,
@@ -237,42 +263,42 @@ def mdsl_round(state: SwarmTrainState, data_x: torch.Tensor,
 
     # --- LocalUpdate (Algorithm 1 lines 3-4) ---
     with rounds.stage_span("LocalUpdate"):
-        pre_losses = eval_stacked(eval_fn, state.workers.params, eval_x,
-                                  eval_y)
-        workers = pso.update_local_best(state.workers, pre_losses)
+        with rounds.stage_span("LocalUpdate.score"):
+            pre_losses = eval_stacked(eval_fn, state.workers.params, eval_x,
+                                      eval_y)
+            workers = pso.update_local_best(state.workers, pre_losses)
         prev_params = workers.params
         workers = local_update(workers, state.gbest.params, data_x, data_y,
                                loss_fn, pso.coefficients(draws.coeffs), lr,
-                               cfg, draws.perms)
-        workers = workers._replace(params=comm_channel.corrupt_local_updates(
-            cfg.comm, prev_params, workers.params, draws.byz_noise))
-        eval_losses = eval_stacked(eval_fn, workers.params, eval_x, eval_y)
+                               cfg, draws.perms, draws.byz_noise)
+        delta = tree_map(lambda a, b: a - b, workers.params, prev_params)
+        with rounds.stage_span("LocalUpdate.score"):
+            eval_losses = eval_stacked(eval_fn, workers.params, eval_x,
+                                       eval_y)
 
     # --- ScoreSelect (lines 5-6, Eqs. 4-6) ---
-    theta, mask, theta_mean = pipe.select(eval_losses, state.eta,
-                                          state.sel.prev_theta_mean)
+    sel = pipe.select(eval_losses, state.eta, state.sel.prev_theta_mean)
 
     # --- Uplink -> Aggregate -> Downlink (lines 7-9, Eq. 7) ---
-    delta = tree_map(lambda a, b: a - b, workers.params, prev_params)
-    out = pipe.wire(delta=delta, theta=theta, mask=mask,
+    out = pipe.wire(delta=delta, theta=sel.theta, mask=sel.mask,
                     global_params=state.global_params,
                     residual=state.residual, ps_residual=state.ps_residual,
                     draws=draws, phy=state.phy, buffer=state.buffer)
 
     # --- BestTracking (Eq. 10) ---
     with rounds.stage_span("BestTracking"), torch.no_grad():
-        global_loss = eval_fn(out.global_params, eval_x, eval_y)
+        with rounds.stage_span("GlobalLoss"):
+            global_loss = eval_fn(out.global_params, eval_x, eval_y)
         gbest = pso.update_global_best(state.gbest, out.global_params,
                                        global_loss)
     next_state = SwarmTrainState(
         workers=workers, global_params=out.global_params, gbest=gbest,
-        sel=SelectionState(prev_theta_mean=theta_mean),
+        sel=SelectionState(prev_theta_mean=sel.theta_mean),
         round_idx=state.round_idx + 1, eta=state.eta,
         residual=out.residual, ps_residual=out.ps_residual, phy=out.phy,
         buffer=out.buffer)
-    return next_state, pipe.telemetry(losses=eval_losses, theta=theta,
-                                      mask=mask, global_loss=global_loss,
-                                      outcome=out)
+    return next_state, pipe.telemetry(losses=eval_losses, sel=sel,
+                                      global_loss=global_loss, outcome=out)
 
 
 count_params = rounds.count_params

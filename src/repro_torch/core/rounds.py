@@ -1,14 +1,17 @@
 """Composable round engine: Algorithm 1 as a pipeline of stages over
 stacked-worker pytrees (leading dim C).
 
-  LocalUpdate    engine-specific (core/mdsl.py)
-  ScoreSelect    Eq. 5 scores + Eq. 6 selection (`score_select`)
-  Uplink         per-worker compression with error feedback (`uplink`,
-                 or the fused wire-format `uplink_packed`)
+  LocalUpdate    engine-specific (core/mdsl.py, core/swarm_dist.py)
+  ScoreSelect    Eq. 5 scores + Eq. 6 selection (`score_select`), and
+                 the round's selection counts (`Selection`)
+  Uplink         fault deselection, fading, then per-worker compression
+                 with error feedback (`uplink`, or the fused wire-format
+                 `uplink_packed`)
   Aggregate      phy link + Eq. 7 (`comm.channel.receive` /
                  `receive_packed`)
   Downlink       the PS broadcast, optionally quantized with PS-side
-                 error feedback (`downlink`)
+                 error feedback (`downlink`), and the round's wire
+                 accounting
   BestTracking   Eq. 9/10 (core/pso.py for the paper engine;
                  `track_local_best` / `track_global_best` here for the
                  mesh engine's stacked state)
@@ -81,6 +84,16 @@ class RoundTelemetry(NamedTuple):
     @property
     def delivered_count(self) -> torch.Tensor:
         return self.delivered
+
+
+class Selection(NamedTuple):
+    """ScoreSelect's outputs: the scores, the mask, the next threshold
+    and the round's selection counts for the telemetry."""
+    theta: torch.Tensor              # (C,) Eq.-5 scores
+    mask: torch.Tensor               # (C,) Eq.-6 selection
+    theta_mean: torch.Tensor         # () the next round's threshold
+    selected_count: torch.Tensor     # () sum of the mask
+    uploaded_params: torch.Tensor    # () n * sum of the mask
 
 
 class WireOutcome(NamedTuple):
@@ -242,75 +255,75 @@ def wire_round(comm: CommConfig, *, delta: PyTree, theta: torch.Tensor,
             "with comm.straggler.init_buffer and thread it through "
             "wire_round(buffer=...)")
     transmitted = None
-    if comm_straggler.fault_mode(comm):
-        if draws.crash is None:
-            raise ValueError("fault injection (fault_prob > 0) needs the "
-                             "round's crash rows in draws.crash "
-                             "(comm.straggler.crash_draws)")
-        # crashed workers transmit nothing: no bytes, no airtime, no EF
-        # advance
-        mask = mask * comm_straggler.alive_mask(draws.crash)
-        transmitted = mask.sum()
-    if phy is not None:
-        phy = comm_phy.evolve(comm, phy, draws.fade)
-        snr_db = phy.snr_db
-    else:
-        snr_db = None
-    packed_route = (uplink_fn is uplink
-                    and aggregate_fn is comm_channel.receive
-                    and comm_compress.packed_wire_eligible(comm, delta))
     sstats = None
-    if packed_route:
-        with stage_span("Uplink"):
+    with stage_span("Uplink"):
+        if comm_straggler.fault_mode(comm):
+            if draws.crash is None:
+                raise ValueError("fault injection (fault_prob > 0) needs "
+                                 "the round's crash rows in draws.crash "
+                                 "(comm.straggler.crash_draws)")
+            # crashed workers transmit nothing: no bytes, no airtime, no
+            # EF advance
+            mask = mask * comm_straggler.alive_mask(draws.crash)
+            transmitted = mask.sum()
+        if phy is not None:
+            phy = comm_phy.evolve(comm, phy, draws.fade)
+            snr_db = phy.snr_db
+        else:
+            snr_db = None
+        packed_route = (uplink_fn is uplink
+                        and aggregate_fn is comm_channel.receive
+                        and comm_compress.packed_wire_eligible(comm, delta))
+        if packed_route:
             wire, residual = uplink_packed(comm, delta, residual, mask,
                                            draws.up_seeds)
             tier_idx = None
+        else:
+            # the straggler route always runs the dense uplink: parking a
+            # late delta needs its individual decode
+            wire, residual, tier_idx = uplink_fn(comm, delta, residual,
+                                                 theta, mask, draws.up_seeds,
+                                                 snr_db=snr_db)
+    if packed_route:
         with stage_span("Aggregate"):
             agg_params, mask_eff = comm_channel.receive_packed(
                 comm, global_params, wire, mask, keep=draws.keep,
                 snr_db=snr_db)
+    elif straggler_mode:
+        with stage_span("Straggle"):
+            late = comm_straggler.late_mask(comm, global_params, mask,
+                                            snr_db=snr_db, tier_idx=tier_idx)
+        with stage_span("Aggregate"):
+            agg_params, mask_eff, buffer, sstats = (
+                comm_straggler.aggregate_and_drain(
+                    comm, global_params, wire, mask, late, snr_db, buffer,
+                    keep=draws.keep, noise=draws.noise))
     else:
-        # the straggler route always runs the dense uplink: parking a late
-        # delta needs its individual decode
-        with stage_span("Uplink"):
-            wire, residual, tier_idx = uplink_fn(comm, delta, residual,
-                                                 theta, mask, draws.up_seeds,
-                                                 snr_db=snr_db)
-        if straggler_mode:
-            with stage_span("Straggle"):
-                late = comm_straggler.late_mask(comm, global_params, mask,
-                                                snr_db=snr_db,
-                                                tier_idx=tier_idx)
-            with stage_span("Aggregate"):
-                agg_params, mask_eff, buffer, sstats = (
-                    comm_straggler.aggregate_and_drain(
-                        comm, global_params, wire, mask, late, snr_db,
-                        buffer, keep=draws.keep, noise=draws.noise))
-        else:
-            with stage_span("Aggregate"):
-                agg_params, mask_eff = aggregate_fn(
-                    comm, global_params, wire, mask, keep=draws.keep,
-                    noise=draws.noise, snr_db=snr_db)
+        with stage_span("Aggregate"):
+            agg_params, mask_eff = aggregate_fn(
+                comm, global_params, wire, mask, keep=draws.keep,
+                noise=draws.noise, snr_db=snr_db)
     with stage_span("Downlink"):
         bcast, ps_res_new = downlink_fn(comm, agg_params, global_params,
                                         ps_residual, draws.down_seeds)
-    if straggler_mode:
-        # quorum hold: the PS broadcasts w_t unchanged and its downlink EF
-        # state freezes (a compressed downlink would otherwise flush its
-        # residual through a zero aggregate)
-        held = sstats.held > 0
-        bcast = tree_map(lambda g, b: torch.where(held, g, b),
-                         global_params, bcast)
-        ps_residual = tree_map(lambda o, n: torch.where(held, o, n),
-                               ps_residual, ps_res_new)
-    else:
-        ps_residual = ps_res_new
-    rec = comm_budget.round_record(comm, global_params, num_workers, mask,
-                                   mask_eff, tier_idx=tier_idx,
-                                   snr_db=snr_db)
-    if phy is not None:
-        phy = comm_phy.advance_age(
-            phy, mask_eff, buffered=buffer.age if straggler_mode else None)
+        if straggler_mode:
+            # quorum hold: the PS broadcasts w_t unchanged and its downlink
+            # EF state freezes (a compressed downlink would otherwise
+            # flush its residual through a zero aggregate)
+            held = sstats.held > 0
+            bcast = tree_map(lambda g, b: torch.where(held, g, b),
+                             global_params, bcast)
+            ps_residual = tree_map(lambda o, n: torch.where(held, o, n),
+                                   ps_residual, ps_res_new)
+        else:
+            ps_residual = ps_res_new
+        rec = comm_budget.round_record(comm, global_params, num_workers,
+                                       mask, mask_eff, tier_idx=tier_idx,
+                                       snr_db=snr_db)
+        if phy is not None:
+            phy = comm_phy.advance_age(
+                phy, mask_eff,
+                buffered=buffer.age if straggler_mode else None)
     return WireOutcome(global_params=bcast, residual=residual,
                        ps_residual=ps_residual, mask_eff=mask_eff,
                        record=rec, phy=phy, buffer=buffer,
@@ -419,10 +432,15 @@ class RoundPipeline(NamedTuple):
     aggregate_fn: Callable = comm_channel.receive
     downlink_fn: Callable = downlink
 
-    def select(self, losses, eta, prev_theta_mean):
+    def select(self, losses, eta, prev_theta_mean) -> Selection:
         with stage_span("ScoreSelect"):
-            return self.score_select_fn(self.algorithm, losses, eta,
-                                        self.tau, prev_theta_mean)
+            theta, mask, theta_mean = self.score_select_fn(
+                self.algorithm, losses, eta, self.tau, prev_theta_mean)
+            return Selection(theta=theta, mask=mask, theta_mean=theta_mean,
+                             selected_count=mask.sum(),
+                             uploaded_params=(
+                                 selection.uploaded_parameter_count(
+                                     mask, self.n_params)))
 
     def wire(self, *, delta, theta, mask, global_params, residual,
              ps_residual, draws, phy=None, buffer=None) -> WireOutcome:
@@ -435,15 +453,16 @@ class RoundPipeline(NamedTuple):
                           aggregate_fn=self.aggregate_fn,
                           downlink_fn=self.downlink_fn)
 
-    def telemetry(self, *, losses, theta, mask, global_loss,
+    def telemetry(self, *, losses, sel: Selection, global_loss,
                   outcome: WireOutcome) -> RoundTelemetry:
+        """The round's record from the stages' outputs: it launches no
+        device work."""
         rec = outcome.record
         s = outcome.straggler
         return RoundTelemetry(
-            losses=losses, theta=theta, mask=mask, global_loss=global_loss,
-            selected_count=mask.sum(),
-            uploaded_params=selection.uploaded_parameter_count(
-                mask, self.n_params),
+            losses=losses, theta=sel.theta, mask=sel.mask,
+            global_loss=global_loss, selected_count=sel.selected_count,
+            uploaded_params=sel.uploaded_params,
             bytes_up=rec.bytes_up, bytes_down=rec.bytes_down,
             delivered=rec.delivered,
             compression_ratio=rec.compression_ratio,

@@ -52,6 +52,7 @@ stage and plain-SGD local deltas from the global model.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -160,8 +161,10 @@ def _grad_fn(loss_fn: LossFn) -> Callable:
         leaves, treedef = tree_flatten(params)
         xs = [x.detach().requires_grad_() for x in leaves]
         with torch.enable_grad():
-            loss = loss_fn(tree_unflatten(treedef, xs), batch)
-            grads = torch.autograd.grad(loss, xs)
+            with rounds.stage_span("LocalUpdate.train.fwd"):
+                loss = loss_fn(tree_unflatten(treedef, xs), batch)
+            with rounds.stage_span("LocalUpdate.train.bwd"):
+                grads = torch.autograd.grad(loss, xs)
         return tree_unflatten(treedef, list(grads))
     return grad_fn
 
@@ -205,12 +208,7 @@ def _round(loss_fn: LossFn, grad_fn: Callable, cfg: DistSwarmConfig,
     fleet = _fleet(cfg, state)
     pipe = _pipeline(cfg, algorithm, state.global_params)
     lr = pso.decayed_lr(cfg.hp, state.round_idx)
-    small = {k: tree_map(fleet.full, getattr(state, k))
-             for k in ("best_loss", "gbest_loss", "prev_theta_mean", "eta",
-                       "phy")}
     with fleet.context():
-        eval_w = tree_map(fleet.replica, eval_batch)
-
         def local_deltas(start: Callable[[int], PyTree]) -> PyTree:
             """(W, ...) stacked d_w = SGD^local_steps(w0_w) - w0_w for
             this rank's workers, one at a time; start(i) is worker i's
@@ -237,32 +235,45 @@ def _round(loss_fn: LossFn, grad_fn: Callable, cfg: DistSwarmConfig,
                     for i in fleet.workers]))
 
         with rounds.stage_span("LocalUpdate"):
+            # the fleet-wide rows the later stages read
+            small = {k: tree_map(fleet.full, getattr(state, k))
+                     for k in ("best_loss", "gbest_loss", "prev_theta_mean",
+                               "eta", "phy")}
+            eval_w = tree_map(fleet.replica, eval_batch)
             if algorithm == "mdsl":
                 # local SGD steps, then Eq. 8 over the stacked state: one
                 # fused kernel launch per leaf for all of a rank's workers
-                deltas = local_deltas(lambda i: tree_map(
-                    lambda x: fleet.view(x, i), state.params))
-                coefs = _eq8_coefs(draws.coeffs, cfg.hp.velocity_clip)
-                leaves, treedef = tree_flatten(state.params)
-                updated = [pso_update(coefs, *xs) for xs in zip(
-                    leaves, *(tree_leaves(t) for t in (
-                        state.velocity, state.best_params,
-                        state.gbest_params, deltas)))]
-                del deltas
-                new_params = tree_unflatten(treedef, [u[0] for u in updated])
-                new_vel = tree_unflatten(treedef, [u[1] for u in updated])
-                del updated
-                # Byzantine workers' local updates are adversarial: the
-                # corruption lands in their params so Eq. 6 can reject them
-                new_params = comm_channel.corrupt_local_updates(
-                    cfg.comm, state.params, new_params, draws.byz_noise)
-                losses = worker_losses(lambda i: tree_map(
-                    lambda x: fleet.view(x, i), new_params))
+                with rounds.stage_span("LocalUpdate.train"):
+                    deltas = local_deltas(lambda i: tree_map(
+                        lambda x: fleet.view(x, i), state.params))
+                with rounds.stage_span("LocalUpdate.eq8"):
+                    coefs = _eq8_coefs(draws.coeffs, cfg.hp.velocity_clip)
+                    leaves, treedef = tree_flatten(state.params)
+                    updated = [pso_update(coefs, *xs) for xs in zip(
+                        leaves, *(tree_leaves(t) for t in (
+                            state.velocity, state.best_params,
+                            state.gbest_params, deltas)))]
+                    del deltas
+                    new_params = tree_unflatten(treedef,
+                                                [u[0] for u in updated])
+                    new_vel = tree_unflatten(treedef, [u[1] for u in updated])
+                    del updated
+                    # Byzantine workers' local updates are adversarial:
+                    # the corruption lands in their params so Eq. 6 can
+                    # reject them
+                    new_params = comm_channel.corrupt_local_updates(
+                        cfg.comm, state.params, new_params, draws.byz_noise)
+                with rounds.stage_span("LocalUpdate.score"):
+                    losses = worker_losses(lambda i: tree_map(
+                        lambda x: fleet.view(x, i), new_params))
+                # after the scoring, so that the delta is not held through
+                # its forwards
                 delta = tree_map(lambda a, b: a - b, new_params,
                                  state.params)
             else:
                 g = tree_map(fleet.replica, state.global_params)
-                deltas = local_deltas(lambda i: g)
+                with rounds.stage_span("LocalUpdate.train"):
+                    deltas = local_deltas(lambda i: g)
                 # FedAvg rides the same wire: byzantine deltas,
                 # compression with error feedback, channel — but every
                 # worker uploads
@@ -271,20 +282,21 @@ def _round(loss_fn: LossFn, grad_fn: Callable, cfg: DistSwarmConfig,
                     cfg.comm, zeros, deltas, draws.byz_noise)
                 del zeros, deltas
                 # real per-worker scores: F_i at w_t + delta_i on D_g
-                losses = worker_losses(lambda i: tree_map(
-                    lambda a, d: a + fleet.view(d, i), g, delta))
+                with rounds.stage_span("LocalUpdate.score"):
+                    losses = worker_losses(lambda i: tree_map(
+                        lambda a, d: a + fleet.view(d, i), g, delta))
 
         # --- ScoreSelect (Eqs. 5-6) ---
-        theta, mask, theta_mean = pipe.select(losses, small["eta"],
-                                              small["prev_theta_mean"])
+        sel = pipe.select(losses, small["eta"], small["prev_theta_mean"])
 
         # --- Uplink -> Aggregate -> Downlink (Eq. 7 through the wire) ---
-        out = fleet.wire(pipe, state, small["phy"], delta, theta, mask,
-                         draws)
+        out = fleet.wire(pipe, state, small["phy"], delta, sel.theta,
+                         sel.mask, draws)
         del delta
-        global_loss = fleet.full(_eval(loss_fn, out.global_params,
-                                       eval_batch))
-        telemetry = pipe.telemetry(losses=losses, theta=theta, mask=mask,
+        with rounds.stage_span("GlobalLoss"):
+            global_loss = fleet.full(_eval(loss_fn, out.global_params,
+                                           eval_batch))
+        telemetry = pipe.telemetry(losses=losses, sel=sel,
                                    global_loss=global_loss, outcome=out)
         if algorithm == "fedavg":
             return state._replace(
@@ -301,13 +313,15 @@ def _round(loss_fn: LossFn, grad_fn: Callable, cfg: DistSwarmConfig,
             gbest_params, gbest_loss = rounds.track_global_best(
                 state.gbest_params, small["gbest_loss"], out.global_params,
                 global_loss, where=fleet.where)
+            best_loss = fleet.place(best_loss, state.best_loss)
+            gbest_loss = fleet.place(gbest_loss, state.gbest_loss)
+            theta_mean = fleet.place(sel.theta_mean, state.prev_theta_mean)
     return DistSwarmState(
         params=new_params, velocity=new_vel, best_params=best_params,
-        best_loss=fleet.place(best_loss, state.best_loss),
-        global_params=out.global_params, gbest_params=gbest_params,
-        gbest_loss=fleet.place(gbest_loss, state.gbest_loss),
-        prev_theta_mean=fleet.place(theta_mean, state.prev_theta_mean),
-        eta=state.eta, round_idx=state.round_idx + 1, residual=out.residual,
+        best_loss=best_loss, global_params=out.global_params,
+        gbest_params=gbest_params, gbest_loss=gbest_loss,
+        prev_theta_mean=theta_mean, eta=state.eta,
+        round_idx=state.round_idx + 1, residual=out.residual,
         ps_residual=out.ps_residual, phy=out.phy,
         buffer=out.buffer), telemetry
 
@@ -385,15 +399,23 @@ class _MeshFleet(_Fleet):
         names = axis_names(mesh)
         self.mesh = mesh
         self.wdims = tuple(names.index(a) for a in cfg.worker_axes)
-        rest = tuple(n for n in names if n not in cfg.worker_axes)
         off, size = 0, cfg.num_spatial
         for d in self.wdims:
             size //= mesh.size(d)
             off += mesh.get_local_rank(d) * size
         self.rows = slice(off, off + size)
         self.workers = range(size)
-        self.sub = (mesh if not self.wdims
-                    else mesh[rest if len(rest) > 1 else rest[0]])
+
+    @functools.cached_property
+    def sub(self):
+        """The mesh over the axes other than the workers': slicing runs
+        tensor ops on the mesh's rank table, so it waits for the first
+        view, inside LocalUpdate."""
+        if not self.wdims:
+            return self.mesh
+        rest = tuple(n for d, n in enumerate(axis_names(self.mesh))
+                     if d not in self.wdims)
+        return self.mesh[rest if len(rest) > 1 else rest[0]]
 
     def context(self):
         # model code mixes plain tensors (positions, masks) into DTensors
@@ -494,12 +516,14 @@ class _MeshFleet(_Fleet):
                 and comm_compress.packed_wire_eligible(pipe.comm, delta)):
             gather = lambda t: (None if t is None
                                 else tree_map(self._over_workers, t))
-            delta = gather(delta)
-            sent = state._replace(residual=gather(state.residual),
-                                  buffer=gather(state.buffer))
+            with rounds.stage_span("WireGather"):
+                delta = gather(delta)
+                sent = state._replace(residual=gather(state.residual),
+                                      buffer=gather(state.buffer))
         out = super().wire(pipe, sent, phy, delta, theta, mask, draws)
-        return out._replace(**{
-            k: None if getattr(out, k) is None
-            else tree_map(self._as, getattr(out, k), getattr(state, k))
-            for k in ("global_params", "ps_residual", "residual", "phy",
-                      "buffer")})
+        with rounds.stage_span("WireRelayout"):
+            return out._replace(**{
+                k: None if getattr(out, k) is None
+                else tree_map(self._as, getattr(out, k), getattr(state, k))
+                for k in ("global_params", "ps_residual", "residual", "phy",
+                          "buffer")})

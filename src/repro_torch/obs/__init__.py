@@ -14,9 +14,9 @@ from repro_torch.obs.events import (EVENT_SCHEMA, EVENT_TYPES, Emitter,
 from repro_torch.obs.sinks import (CsvSink, FanoutSink, JsonlSink,
                                    RingBufferSink, Sink, default_obs_dir,
                                    follow_jsonl, merge_streams, read_events)
-from repro_torch.obs.trace import (RoundProfiler, StageTracer, activated,
-                                   current, install, note_dispatch,
-                                   note_kernel, stage_span, uninstall)
+from repro_torch.obs.trace import (STAGES, RoundProfiler, StageTracer,
+                                   activated, current, install,
+                                   note_dispatch, stage_span, uninstall)
 
 __all__ = [
     "EVENT_SCHEMA", "EVENT_TYPES", "Emitter", "Event", "KernelEvent",
@@ -25,6 +25,6 @@ __all__ = [
     "parse", "parse_line",
     "CsvSink", "FanoutSink", "JsonlSink", "RingBufferSink", "Sink",
     "default_obs_dir", "follow_jsonl", "merge_streams", "read_events",
-    "RoundProfiler", "StageTracer", "activated", "current", "install",
-    "note_dispatch", "note_kernel", "stage_span", "uninstall",
+    "STAGES", "RoundProfiler", "StageTracer", "activated", "current",
+    "install", "note_dispatch", "stage_span", "uninstall",
 ]

@@ -1,14 +1,46 @@
 """Per-stage span tracing and torch.profiler round windows.
 
 `stage_span(name)` is the one instrumentation point the round pipeline
-and both engines call around their stages (LocalUpdate / ScoreSelect /
-Uplink / Aggregate / Downlink / BestTracking). With no tracer installed
-it returns `torch.profiler.record_function(name)`: a named range that
-costs nothing unless a profiler is recording, where it groups
-the stage's host and device time.
+and both engines call, at every boundary inside a round. With no tracer
+installed it returns `torch.profiler.record_function(name)`: a named
+range that costs nothing unless a profiler is recording, where it groups
+the host and device time of what runs inside it. The span tree of one
+`Prepared.step` (children indented; every operation of the step runs
+inside one of these):
+
+    LocalUpdate
+      LocalUpdate.score       the workers' scoring forwards on D_g (the
+                              paper engine's two, with Eq. 9's local
+                              best from the first; the mesh engine's
+                              `worker_losses`)
+      LocalUpdate.train       local training (the paper engine's vmapped
+                              SGD epochs, per-step Eq. 8 inside them
+                              under `pso_every_step`; the mesh engine's
+                              `local_deltas`)
+        LocalUpdate.train.fwd   mesh: one gradient call's loss forward
+        LocalUpdate.train.bwd   mesh: its `torch.autograd.grad`, with
+                                any recompute
+      LocalUpdate.eq8         the round-level Eq. 8 and the Byzantine
+                              corruption (absent where no Eq. 8 runs
+                              there: FedAvg, `pso_every_step`)
+    ScoreSelect               Eqs. 5-6 and the round's selection counts
+    WireGather                mesh fleet, dense and straggler routes:
+                              the deltas, residuals and parked deltas
+                              gathered over the worker axes
+    Uplink                    fault deselection, fading, compression
+    Straggle                  deadline misses (straggler route)
+    Aggregate                 the channel and Eq. 7
+    Downlink                  the broadcast, the quorum hold, the round's
+                              wire accounting
+    WireRelayout              mesh fleet: the wire's outputs laid out as
+                              the state is
+    GlobalLoss                mesh: the global model's forward on D_g
+    BestTracking              Eqs. 9-10 (none in the mesh engine's
+                              FedAvg)
+      GlobalLoss              paper: the global model's forward on D_g
 
 With a `StageTracer` installed (the runner installs one for obs-enabled
-runs), each span:
+runs), each span of `STAGES` (the stages the reference's stream names):
 
   * times host issue with `time.perf_counter` and emits a StageEvent
     with phase="host" and the round the runner set (`tracer.round`).
@@ -21,16 +53,28 @@ runs), each span:
     traces carry the stage names, and on a CUDA device an NVTX range,
     so Nsight timelines do too.
 
+The other spans (the children, the mesh fleet's two and GlobalLoss)
+stay profiler ranges: the stream's stage names and counts are the
+reference's. LocalUpdate's own time holds the rest of the stage: the
+uplink delta, FedAvg's result and, where no Eq. 8 span opens, the
+corruption.
+
+One clock: a profiler's Chrome trace (`export_chrome_trace`) stamps an
+event at Unix time `baseTimeNanoseconds + 1000 * ts` ns, and the stream
+stamps one at Unix time `RunStart.wall_time - RunStart.t_s + t_s` s. A
+StageEvent is stamped at its span's end, so its range opens `dur_s`
+before that, within a millisecond of the same `record_function` range
+in the trace.
+
 `RoundProfiler` owns the `torch.profiler.profile` window (`--profile-dir`
 captures `profile_rounds` rounds starting past the round-0 warm-up),
 marks each captured round with a "round" range and writes one Chrome
 trace named after the run id.
 
 `note_dispatch` is the KernelEvent hook the kernel wrappers call
-(re-exported as `repro_torch.kernels.runtime.note_dispatch`);
-`note_kernel` is the reference's form of it, with the backend named.
-The JAX package reports a dispatch once per jit trace; an eager wrapper
-runs on every launch, so a tracer emits each distinct (name, backend,
+(re-exported as `repro_torch.kernels.runtime.note_dispatch`). The JAX
+package reports a dispatch once per jit trace; an eager wrapper runs on
+every launch, so a tracer emits each distinct (name, backend,
 interpret, info) once.
 """
 from __future__ import annotations
@@ -45,6 +89,10 @@ import torch
 from repro_torch.obs.events import Emitter
 
 _ACTIVE: Optional["StageTracer"] = None
+
+# The spans a StageTracer emits on the stream: the reference's stages.
+STAGES = frozenset({"LocalUpdate", "ScoreSelect", "Uplink", "Straggle",
+                    "Aggregate", "Downlink", "BestTracking"})
 
 
 class StageTracer:
@@ -113,19 +161,12 @@ def activated(tracer: Optional[StageTracer]) -> Iterator[None]:
 
 def stage_span(name: str):
     """The pipeline/engine instrumentation point: a `record_function`
-    range, timed and emitted when a tracer is installed."""
+    range, timed and emitted when a tracer is installed and `name` is
+    one of `STAGES`."""
     t = _ACTIVE
-    if t is None:
+    if t is None or name not in STAGES:
         return torch.profiler.record_function(name)
     return t.span(name)
-
-
-def note_kernel(name: str, *, backend: str, interpret: bool,
-                **info) -> None:
-    """Kernel dispatch hook: emits a KernelEvent when tracing is on."""
-    t = _ACTIVE
-    if t is not None:
-        t.kernel(name, backend=backend, interpret=interpret, **info)
 
 
 def note_dispatch(name: str, interpret: bool, **info) -> None:

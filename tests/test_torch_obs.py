@@ -18,11 +18,13 @@ both sides):
 """
 import json
 import os
+from collections import Counter
 from pathlib import Path
 
 import hypothesis as hp
 import hypothesis.strategies as st
 import pytest
+import torch.distributed as dist
 
 from repro.experiments import get_scenario as jget_scenario
 from repro.experiments import override as joverride
@@ -68,13 +70,14 @@ def _port_spec(engine: str, obs_dir: Path, *extra: str):
 
 @pytest.fixture(scope="module")
 def port_runs(tmp_path_factory):
-    """One obs-on 3-round port run per engine; the paper run also writes
-    the CSV mirror and a one-round profiler trace."""
+    """One obs-on 3-round port run per engine, each with a one-round
+    profiler trace; the paper run also writes the CSV mirror."""
     out = {}
     for engine in SCENARIOS:
         d = tmp_path_factory.mktemp(f"port_{engine}")
-        extra = (("run.obs.csv=true", f"run.obs.profile_dir={d / 'prof'}",
-                  "run.obs.profile_rounds=1") if engine == "paper" else ())
+        extra = (f"run.obs.profile_dir={d / 'prof'}",
+                 "run.obs.profile_rounds=1",
+                 *(("run.obs.csv=true",) if engine == "paper" else ()))
         res = run(_port_spec(engine, d, *extra), verbose=False,
                   device="cpu")
         out[engine] = (res, read_events(res.events_path))
@@ -252,14 +255,14 @@ def test_spans_emit_host_stage_events_with_the_round():
     with obs_trace.activated(tracer):
         with obs_trace.stage_span("Uplink"):
             pass
-        obs_trace.note_kernel("quant_pack", backend="cpu", interpret=True,
-                              bits=4)
+        obs_trace.note_dispatch("quant_pack", True, bits=4)
     assert obs_trace.current() is None
     stage, kernel = ring.events
     assert isinstance(stage, StageEvent)
     assert (stage.stage, stage.phase, stage.round) == ("Uplink", "host", 4)
     assert stage.dur_s >= 0.0
     assert isinstance(kernel, KernelEvent) and kernel.info == {"bits": 4}
+    assert (kernel.backend, kernel.interpret) == ("cpu", True)
 
 
 def test_note_dispatch_emits_each_distinct_dispatch_once():
@@ -421,6 +424,165 @@ def test_profiler_window_writes_a_chrome_trace(port_runs):
     assert {"round"} | PIPELINE_STAGES <= names
     logs = [e.msg for e in evs if e.kind == "log"]
     assert any("profiler trace written" in m for m in logs)
+
+
+# ---------------------------------------------------------------------------
+# the span tree inside a round (obs/trace.py)
+# ---------------------------------------------------------------------------
+
+# the spans a round opens beside the stages: the paper engine scores
+# before and after the local update, the mesh engine takes one gradient
+# a worker (W 2); on a DTensor mesh the dense wire's gather and the
+# relayout of its outputs open two more
+CHILD_SPANS = {
+    "paper": {"LocalUpdate.score": 2, "LocalUpdate.train": 1,
+              "LocalUpdate.eq8": 1, "GlobalLoss": 1},
+    "mesh": {"LocalUpdate.score": 1, "LocalUpdate.train": 1,
+             "LocalUpdate.train.fwd": 2, "LocalUpdate.train.bwd": 2,
+             "LocalUpdate.eq8": 1, "GlobalLoss": 1},
+    "mesh-fleet": {"LocalUpdate.score": 1, "LocalUpdate.train": 1,
+                   "LocalUpdate.train.fwd": 1, "LocalUpdate.train.bwd": 1,
+                   "LocalUpdate.eq8": 1, "GlobalLoss": 1, "WireGather": 1,
+                   "WireRelayout": 1}}
+# the span each nests in (None: none; the mesh engine's GlobalLoss opens
+# between the wire and BestTracking)
+PARENT = {"LocalUpdate.score": "LocalUpdate",
+          "LocalUpdate.train": "LocalUpdate", "LocalUpdate.eq8": "LocalUpdate",
+          "LocalUpdate.train.fwd": "LocalUpdate.train",
+          "LocalUpdate.train.bwd": "LocalUpdate.train",
+          "WireGather": None, "WireRelayout": None}
+GLOBAL_LOSS_PARENT = {"paper": "BestTracking", "mesh": None,
+                      "mesh-fleet": None}
+
+
+def _chrome(path: Path) -> tuple[list, list]:
+    """A Chrome trace's (user_annotation ranges, cpu ops), each a list of
+    (start, end, name) in us."""
+    ranges, ops = [], []
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("ph") != "X":
+            continue
+        span = (e["ts"], e["ts"] + e.get("dur", 0), e["name"])
+        if e.get("cat") == "user_annotation":
+            ranges.append(span)
+        elif e.get("cat") == "cpu_op":
+            ops.append(span)
+    return ranges, ops
+
+
+def _warm_step(engine: str, tmp_path: Path):
+    """A callable running one step of the engine's tiny run after a first
+    one. "mesh-fleet": reduced SmolLM-360M on a (1, 1) DTensor mesh of
+    this process (the state's leaves DTensors, so `_MeshFleet` runs the
+    round, its dense wire gathering over the worker axes)."""
+    if engine != "mesh-fleet":
+        tiny = TINY_PAPER if engine == "paper" else TINY_MESH
+        prep = build(override(get_scenario(SCENARIOS[engine]), *tiny),
+                     device="cpu")
+        state, _ = prep.step(prep.state, prep.draw(prep.state))
+        draws = prep.draw(state)
+        return lambda: prep.step(state, draws)
+    import torch_mesh_worker as mw
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import swarm_dist
+    from repro_torch.launch import steps
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                            rank=0, world_size=1)
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    built = steps.build_step(mw._f32("smollm-360m"),
+                             InputShape("train", *mw.TRAIN, "train"), mesh)
+    lay, dcfg = built.layouts, built.meta["dcfg"]
+    _, _, params, (batch, ev, gen) = mw._inputs("smollm-360m", "train",
+                                                dcfg.num_spatial)
+    draws = swarm_dist.sample_draws(gen, dcfg, params, "cpu", 0)
+    rest = (steps.place(batch, lay[1], mesh), steps.place(ev, lay[2], mesh),
+            draws)
+    state, _ = built.fn(steps.place(swarm_dist.init_state(params, dcfg),
+                                    lay[0], mesh), *rest)
+    return lambda: built.fn(state, *rest)
+
+
+@pytest.mark.parametrize("engine", sorted(CHILD_SPANS))
+def test_every_op_of_a_step_runs_inside_a_program_span(engine, tmp_path):
+    """One `Prepared.step` (on a DTensor mesh, the round `build_step`
+    makes) under a CPU profiler: every aten op lies inside a stage span,
+    and each span a round opens beside the stages nests in its
+    parent."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    try:
+        step = _warm_step(engine, tmp_path)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with record_function("test.step"):
+                step()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    path = tmp_path / "step.json"
+    prof.export_chrome_trace(str(path))
+    ranges, ops = _chrome(path)
+    (step,) = [r for r in ranges if r[2] == "test.step"]
+    spans = [r for r in ranges if r[2] != "test.step"]
+    children = CHILD_SPANS[engine]
+    assert {n for *_, n in spans} == \
+        (obs_trace.STAGES - {"Straggle"}) | set(children)
+    assert Counter(n for *_, n in spans if n in children) == children
+    aten = [o for o in ops
+            if o[2].startswith("aten::") and step[0] <= o[0] <= step[1]]
+    assert len(aten) > 100
+    loose = [n for s0, e0, n in aten
+             if not any(s <= s0 and e0 <= e for s, e, _ in spans)]
+    assert loose == []
+    for span in spans:
+        s0, e0, name = span
+        if name not in children:
+            continue
+        holders = {n for s, e, n in spans
+                   if (s, e, n) != span and s <= s0 and e0 <= e}
+        want = (GLOBAL_LOSS_PARENT[engine] if name == "GlobalLoss"
+                else PARENT[name])
+        if want is None:
+            assert holders == set(), name
+        else:
+            assert want in holders, (name, holders)
+
+
+@pytest.mark.parametrize("engine", sorted(SCENARIOS))
+def test_stream_holds_each_stage_once_a_round(engine, port_runs):
+    """The spans inside a stage and GlobalLoss are profiler ranges only:
+    the stream's stage names and counts are the pipeline's and the
+    runner's (Step, and the paper run's Eval)."""
+    _, evs = port_runs[engine]
+    runner = {"Step", "Eval"} if engine == "paper" else {"Step"}
+    for t in range(3):
+        got = Counter(e.stage for e in evs
+                      if isinstance(e, StageEvent) and e.round == t)
+        assert got == Counter(PIPELINE_STAGES | runner), t
+
+
+@pytest.mark.parametrize("engine", sorted(SCENARIOS))
+def test_stream_and_trace_share_one_clock(engine, port_runs):
+    """Round 1's stage spans on the stream, put on Unix time through
+    RunStart (wall_time - t_s), open and close within 1 ms of the same
+    ranges in its Chrome trace (baseTimeNanoseconds + ts)."""
+    res, evs = port_runs[engine]
+    start = evs[0]
+    unix = start.wall_time - start.t_s
+    path = Path(res.spec.run.obs.profile_dir) / f"{start.run_id}.trace.json"
+    doc = json.loads(path.read_text())
+    base = doc["baseTimeNanoseconds"] * 1e-9
+    traced = {e["name"]: (base + 1e-6 * e["ts"],
+                          base + 1e-6 * (e["ts"] + e["dur"]))
+              for e in doc["traceEvents"]
+              if e.get("cat") == "user_annotation"
+              and e["name"] in PIPELINE_STAGES}
+    stream = {e.stage: (unix + e.t_s - e.dur_s, unix + e.t_s) for e in evs
+              if isinstance(e, StageEvent) and e.round == 1
+              and e.stage in PIPELINE_STAGES}
+    assert set(traced) == set(stream) == PIPELINE_STAGES
+    for stage, (s, e) in stream.items():
+        assert abs(s - traced[stage][0]) < 1e-3, stage
+        assert abs(e - traced[stage][1]) < 1e-3, stage
 
 
 def test_failed_run_ends_the_stream_with_an_error(tmp_path):
