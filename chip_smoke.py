@@ -290,6 +290,17 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      Qwen3-MoE-30B-A3B train_4k on the 256-rank mesh, RecurrentGemma-9B
      decode_32k on the 512-rank one), each record's per-rank peak
      against the card's memory and its dominant term;
+ 42. the worker-batched convolution (`worker_conv`, CNN5's three
+     convolutions for all C workers a launch) at C 200: the forward at a
+     training step's 64 images and the scoring's 2,048 (conv1's images
+     shared), the input gradients of conv2 and conv3 and the three weight
+     gradients, each held in f64 to the plain versions (the vmapped
+     F.conv2d and its autograd) within the f32 bound of its sum chains,
+     the weight gradient bitwise over two calls, timed beside cuDNN's
+     grouped convolution called once (library); its launches on the main
+     path are held to 3 forwards, 2 input gradients and 3 weight
+     gradients a step, 3 forwards a scoring pass, 6 a round at C 1 (the
+     global loss and the test accuracy); run before phase 41's line;
  41. prints the card line, the `kernels` JSON line (each row with its
      share of bound = bound_ms / ms; each kernel's first row with its
      launches in the int4 straggler run, the int4 population run, the
@@ -306,7 +317,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
      pso_update at the per-step Eq. 8's CNN5 leaf, of rglru_scan at the
      training shape, of rglru_scan_bwd, of the forward at hd 128 (Qwen3),
      non-causal (SeamlessM4T's encoder) and at the cross decode, and of
-     the backward at hd 128) and, last, the ok line.
+     the backward at hd 128, and phase 42's worker_conv rows) and,
+     last, the ok line.
 
 Tolerances: payloads, scales, decodes and the wire_agg median bitwise;
 the obs stream's round rows and the restored checkpoint bitwise;
@@ -335,7 +347,10 @@ terms in the other order, which is exact for two terms). The small
 training check (phase 24): phase 10's. The small xLSTM serve (phase 26)
 and the small MoE, encoder-decoder and prefix serves (phases 30 and 33):
 logits within 5e-4, greedy tokens equal. Phase 29's flash cases: phases
-6 and 9's rules. Every timing line of phases 13-28 and 31-39 carries the card's
+6 and 9's rules. Phase 42's convolutions: within (n + 1) 2^-24 of the
+sum of |terms| of the f64 plain version, n each kernel's longest f32 sum
+chain (recursive summation's bound); the weight gradient bitwise over
+two calls. Every timing line of phases 13-28 and 31-39 carries the card's
 name and power limit.
 """
 import json
@@ -2147,17 +2162,18 @@ def straggler_main_path(card: str) -> dict:
             check(any(v > 0 for v in rec["late"]),
                   f"straggler/deadline-tight: no upload late in "
                   f"{rec['late']}")
-            check(counts == {}, f"straggler dense f32 run launched {counts}")
+            check(without_conv(counts) == {},
+                  f"straggler dense f32 run launched {counts}")
         else:
             per = LEAVES * ROUNDS
             want = {"quant_pack": 2 * per, "dequant_unpack": 2 * per}
-            check(counts == want, f"straggler int4 run launched {counts}, "
-                                  f"expected {want}")
+            check(without_conv(counts) == want,
+                  f"straggler int4 run launched {counts}, expected {want}")
             # the uplink at C = 50 and the downlink at C = 1, a leaf each
             want = {k: {1: per, 50: per} for k in want}
-            check(by_workers == want, f"straggler int4 run launched "
-                                      f"{by_workers} by worker count, "
-                                      f"expected {want}")
+            check(without_conv(by_workers) == want,
+                  f"straggler int4 run launched {by_workers} by worker "
+                  f"count, expected {want}")
             out = counts, by_workers
     return out
 
@@ -2235,11 +2251,12 @@ def fleet_path(card: str) -> dict:
             per = LEAVES * FLEET_ROUNDS
             want = {"quant_pack_ef": per, "wire_agg": per,
                     "quant_pack": per, "dequant_unpack": per}
-            check(counts == want, f"{name} int4 launched {counts}, expected "
-                                  f"{want}")
+            check(without_conv(counts) == want,
+                  f"{name} int4 launched {counts}, expected {want}")
             out = counts
         else:
-            check(counts == {}, f"{name} (dense f32, AWGN) launched {counts}")
+            check(without_conv(counts) == {},
+                  f"{name} (dense f32, AWGN) launched {counts}")
     return out
 
 
@@ -2664,8 +2681,8 @@ def pso_every_step_path(card: str) -> dict:
     rec = result.record
     want = dict({k: rounds * LEAVES for k in MAIN_BITS},
                 pso_update=steps * LEAVES * rounds)
-    check(counts == want, f"per-step Eq. 8 launched {counts}, expected "
-                          f"{want}")
+    check(without_conv(counts) == want,
+          f"per-step Eq. 8 launched {counts}, expected {want}")
     check(all(math.isfinite(v) for v in rec["global_loss"]),
           "per-step Eq. 8: loss not finite")
     print(f"[eq8-step] {rounds} rounds of low-bandwidth-int4 with "
@@ -4275,6 +4292,146 @@ def dispatch_layout_check(dev, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+CONV_OPS = ("worker_conv", "worker_conv_dgrad", "worker_conv_wgrad")
+# CNN5 at width x8 on 28 x 28 x 1 images: (Cin, Cout, H = W)
+CONV_LAYERS = {"conv1": (1, 8, 28), "conv2": (8, 16, 14),
+               "conv3": (16, 16, 7)}
+
+
+def without_conv(counts: dict) -> dict:
+    """A run's launch counts less the convolution's (every CNN run on the
+    card launches it; the wire checks read the rest)."""
+    return {k: n for k, n in counts.items() if k not in CONV_OPS}
+
+
+def conv_launches(spec, rounds: int) -> dict:
+    """{operator: {C: launches}} of `rounds` paper rounds of CNN5: a
+    local step's 3 forwards, 2 input gradients (conv1's input is the
+    image) and 3 weight gradients; 3 forwards for each of the two
+    scoring passes at C; 3 at C = 1 for the global loss and 3 for the
+    test of the global model the runner makes each round."""
+    d, a = spec.data, spec.algo
+    C, steps = d.num_workers, (d.n_local // a.batch_size) * a.local_epochs
+    return {"worker_conv": {C: rounds * (3 * steps + 6), 1: rounds * 6},
+            "worker_conv_dgrad": {C: rounds * 2 * steps},
+            "worker_conv_wgrad": {C: rounds * 3 * steps}}
+
+
+def worker_conv_checks(dev) -> list:
+    """Phase 42: the worker-batched convolution at C 200 against its
+    plain versions (the vmapped F.conv2d and its autograd, in f64 for
+    workers 0, 101 and 199, within the f32 bound of each kernel's sum
+    chains) and timed: the forward at CNN5's three layers for a training
+    step's 64 images and the scoring's 2,048 (conv1's images shared),
+    the input gradient of conv2 and conv3, the weight gradients of all
+    three; device (a CUDA graph), eager, plain (ref.py: vmapped cuDNN)
+    and library (cuDNN's grouped convolution called once) times; the
+    weight gradient bitwise over two calls."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.worker_conv import ops, ref
+    C, pick, rows = 200, [0, 101, 199], []
+    aten_bwd = torch.ops.aten.convolution_backward
+
+    def within(got, fn, args, chain, what):
+        exact = fn(*[a[pick].cpu().double() if a.shape[0] == C else
+                     a.cpu().double() for a in args])
+        scale = fn(*[a[pick].cpu().double().abs() if a.shape[0] == C else
+                     a.cpu().double().abs() for a in args])
+        for g, e, m in zip(got if isinstance(got, tuple) else (got,),
+                           exact if isinstance(exact, tuple) else (exact,),
+                           scale if isinstance(scale, tuple) else (scale,)):
+            err = (g[pick].cpu().double() - e).abs()
+            tol = (chain + 1) * 2.0 ** -24 * m
+            check(bool((err <= tol).all()),
+                  f"worker_conv {what}: {float((err - tol).max()):.3g} over "
+                  f"the f32 bound")
+            yield float(err.max())
+
+    for N in (64, 2048):
+        for layer, (cin, cout, hw) in CONV_LAYERS.items():
+            shared = N == 2048 and layer == "conv1"
+            g = torch.Generator(device=dev).manual_seed(N + cin)
+            x = torch.randn((1 if shared else C, N, cin, hw, hw), device=dev,
+                            generator=g)
+            w = torch.randn((C, 3, 3, cin, cout), device=dev, generator=g)
+            b = torch.randn((C, cout), device=dev, generator=g)
+            wo = w.permute(0, 4, 3, 1, 2).reshape(C * cout, cin, 3, 3)
+            # cuDNN's call as vmap's batching rule makes it: grouped, or
+            # with the images shared, one convolution of C x Cout filters
+            xg = x[0] if shared else x.transpose(0, 1).reshape(
+                N, C * cin, hw, hw)
+            shape = (f"f32, C={C} x {N} images, {cin}->{cout} channels, "
+                     f"{hw}x{hw}" + (", images shared" if shared else ""))
+            # a CUDA graph keeps every launch's output: <= 8 GB of them
+            reps = max(1, min(20, int(8e9 // (4 * C * N * cout * hw * hw))))
+            cases = {"worker_conv": (
+                lambda: ops.conv_raw(x, w, b, shared),
+                lambda: ref.worker_conv_ref(x, w, b, shared),
+                lambda: F.conv2d(xg, wo, padding=1, groups=1 if shared else C),
+                (ops.WORKER_CONV, x, w, b, shared),
+                (lambda u, v, c: ref.worker_conv_ref(u, v, c, shared),
+                 (x, w, b), 9 * cin + 1))}
+            if N == 64:
+                gy = torch.randn((C, N, cout, hw, hw), device=dev,
+                                 generator=g)
+                gyg = gy.transpose(0, 1).reshape(N, C * cout, hw, hw)
+                if layer != "conv1":
+                    cases["worker_conv_dgrad"] = (
+                        lambda: ops.dgrad_raw(gy, w),
+                        lambda: ref.worker_conv_dgrad_ref(gy, w),
+                        lambda: aten_bwd(gyg, xg, wo, None, [1, 1], [1, 1],
+                                         [1, 1], False, [0, 0], C,
+                                         [True, False, False]),
+                        (ops.WORKER_CONV_DGRAD, gy, w),
+                        (ref.worker_conv_dgrad_ref, (gy, w), 9 * cout))
+                p = ops.plan(True, C, N, cin, cout, hw, hw)
+                chain = (-(-N // p.imgs) * -(-p.imgs * hw * hw // p.groups)
+                         + p.groups)
+                cases["worker_conv_wgrad"] = (
+                    lambda: ops.wgrad_raw(x, gy),
+                    lambda: ref.worker_conv_wgrad_ref(x, gy, False),
+                    lambda: aten_bwd(gyg, xg, wo, [C * cout], [1, 1], [1, 1],
+                                     [1, 1], False, [0, 0], C,
+                                     [False, True, True]),
+                    (ops.WORKER_CONV_WGRAD, x, gy, False),
+                    (lambda u, v: ref.worker_conv_wgrad_ref(u, v, False),
+                     (x, gy), chain))
+            for name, (kern, plain, lib, cost_args, (fn, args, chain)) in \
+                    cases.items():
+                out = kern()
+                torch.cuda.synchronize()
+                err = max(within(out, fn, args, chain, f"{name} {layer} "
+                                 f"N={N}"))
+                if name == "worker_conv_wgrad":
+                    again = kern()
+                    check(all(torch.equal(u, v) for u, v in zip(out, again)),
+                          f"worker_conv_wgrad {layer}: two calls differ")
+                del out
+                bound, by = kernel_bound(*cost_args)
+                row = {"name": f"{name} ({layer}, N {N})", "route": "cuda",
+                       "source": "src/repro_torch/csrc/worker_conv.cu",
+                       "replaces": "none: XLA's vmapped lax.conv "
+                                   "(src/repro/models/cnn.py:37); cuDNN's "
+                                   "per-worker grouped convolutions",
+                       "shape": shape, "max_abs_err": err,
+                       "ms": graph_ms(kern, reps), "eager_ms": time_ms(kern, 5),
+                       "plain_ms": time_ms(plain, 3),
+                       "library_ms": graph_ms(lib, min(reps, 5)),
+                       "bound_ms": bound, "bound_by": by, "check": "pass"}
+                print(f"[worker_conv] {row['name']}: {row['ms'] * 1e3:.1f} "
+                      f"us (bound {bound * 1e3:.1f}, {by}), eager "
+                      f"{row['eager_ms'] * 1e3:.1f}, plain "
+                      f"{row['plain_ms'] * 1e3:.1f}, library "
+                      f"{row['library_ms'] * 1e3:.1f}; max "
+                      f"err {err:.3g}", flush=True)
+                rows.append(row)
+                torch.cuda.empty_cache()
+            del x, w, b, xg, cases
+            torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4331,6 +4488,12 @@ def main() -> None:
         check(counts.get(name, 0) == want,
               f"{name} launched {counts.get(name, 0)} times on the main "
               f"path, expected {want}")
+    # the convolutions: all C workers a launch
+    conv_by_workers = {k: v for k, v in runtime.counts_by_workers().items()
+                       if k in CONV_OPS}
+    check(conv_by_workers == conv_launches(spec, ROUNDS),
+          f"the convolutions launched {conv_by_workers} on the main path, "
+          f"expected {conv_launches(spec, ROUNDS)}")
 
     profile_round(spec)
 
@@ -4686,6 +4849,18 @@ def main() -> None:
         if " (" not in k["name"]:
             k["launches_mesh_steps"] = mesh_step_counts.get(k["name"], 0)
             k["launches_mesh_serve"] = mesh_serve_counts.get(k["name"], 0)
+    # phase 42: the worker-batched convolution at C 200, each row with
+    # its operator's launches as counted in the main path's 3 rounds (C =
+    # 50 and the global model's C = 1), in all and a round
+    t0 = time.perf_counter()
+    conv_rows = worker_conv_checks(dev)
+    print(f"[time] phase 42 (worker_conv at C 200): "
+          f"{time.perf_counter() - t0:.1f} s ({card})", flush=True)
+    for row in conv_rows:
+        op = row["name"].split(" ")[0]
+        row["launches"] = counts.get(op, 0)
+        row["launches_per_round"] = counts.get(op, 0) / ROUNDS
+    kernels.extend(conv_rows)
     for k in kernels:
         k["share_of_bound"] = k["bound_ms"] / k["ms"]
     print(card, flush=True)

@@ -14,6 +14,9 @@ device dispatch, launch count) and a plain `ref.py`:
               offset, valid kv length, GQA), the serve path's prefill
   rglru_scan  the RG-LRU linear recurrence h_t = a_t h_{t-1} + b_t, and
               its backward (the reverse walk)
+  worker_conv the 3x3 stride-1 "SAME" convolution of C workers at once
+              (forward, input and weight gradients), which the CNN
+              models' vmapped convolutions reach on the card
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises (`runtime`). Kernels build with nvcc on first use.

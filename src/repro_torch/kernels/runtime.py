@@ -57,7 +57,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("quant_pack", "wire_agg", "flash_attention", "flash_attention_bwd",
-           "rglru_scan", "rglru_scan_bwd", "pso_update")
+           "rglru_scan", "rglru_scan_bwd", "pso_update", "worker_conv")
 
 # launches of each CUDA kernel since the last reset_counts(); a wrapper
 # adds one exactly where it launches its kernel (plain versions on CPU

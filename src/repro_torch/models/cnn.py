@@ -5,9 +5,11 @@ The public layouts are the JAX package's: conv weights HWIO, dense
 weights (in, out), images NHWC. `apply` converts to PyTorch's OIHW/NCHW
 inside, so params and inputs carry across from the JAX package
 unchanged. Padding follows XLA's "SAME" rule (asymmetric for stride 2).
-Models are (init, apply) pairs: init(gen) -> params, apply(params,
-x[N,H,W,C]) -> logits[N,L]; `torch.func.vmap` over stacked params runs
-the C workers together.
+On the card a 3x3 stride-1 f32 convolution is the `worker_conv` kernel
+(under `vmap`, one launch for all the workers); every other convolution,
+and every one on the CPU, is `F.conv2d`. Models are (init, apply)
+pairs: init(gen) -> params, apply(params, x[N,H,W,C]) -> logits[N,L];
+`torch.func.vmap` over stacked params runs the C workers together.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.runtime import resolve_device
+from repro_torch.kernels.worker_conv import ops as worker_conv_ops
 
 PyTree = Any
 
@@ -49,6 +52,8 @@ def _same(n: int, k: int, stride: int) -> tuple[int, int]:
 
 def _conv(p, x, stride=1):
     """NCHW conv with an HWIO weight and XLA 'SAME' padding."""
+    if worker_conv_ops.takes(x, p["w"], stride):
+        return worker_conv_ops.worker_conv(x, p["w"], p["b"])
     w = p["w"].permute(3, 2, 0, 1)
     kh, kw = w.shape[-2:]
     (ht, hb), (wl, wr) = (_same(x.shape[-2], kh, stride),
